@@ -6,15 +6,20 @@ Phases, one line each (plus the kernel table and the result line):
   1. environment: torch / CUDA / nvcc versions and the card's name and
      power limit (nvidia-smi);
   2. build: nvcc compiles coconut_tpu_torch/csrc/fp_mul.cu into build/;
+     ptxas' registers, spills and shared memory of the kernel;
   3. kernel: the CUDA Montgomery multiply against its plain PyTorch
      version on 55,296 lanes (the fp12_mul shape at B = 1024) of random
-     LAZY inputs plus adversarial rows — exact equality required, sampled
-     lanes checked against Python-int Montgomery products; kernel and
-     plain-version times and the kernel's bound;
+     LAZY inputs plus adversarial rows, and at ragged widths that straddle
+     a lane group and a block (1, G-1, G+1, 127, 129, 3,073) — exact
+     equality required, sampled lanes checked against Python-int
+     Montgomery products; kernel device times and bounds at 3,072, 18,432
+     and 55,296 lanes (fp2_mul, fp6_mul, fp12_mul at B = 1024) and the
+     plain version's time;
   4. main path: TorchBackend().batch_verify at B = 1024, 6 attributes,
      window 9, raw wire, one lane in 8 forged three ways — bits must
      equal the expected verdicts, the main-path run must launch the
-     kernel and never the plain version; warm wall time and verifies/s.
+     kernel and never the plain version; warm wall time, verifies/s and
+     the kernel's launches of one warm batch by width.
 
 Any failed check raises (non-zero exit). The last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the kernel table.
@@ -31,29 +36,19 @@ import numpy as np
 import torch
 
 from coconut_tpu_torch import entry
+from coconut_tpu_torch import bench_fp_mul as kb
 from coconut_tpu_torch.gpu import cuda_fp
 from coconut_tpu_torch.gpu.backend import TorchBackend
-from coconut_tpu_torch.gpu.limbs import MONT_R, NLIMBS
+from coconut_tpu_torch.gpu.limbs import MONT_R
 from coconut_tpu_torch.ops.fields import P
 
-# H100 SXM data-sheet peaks (dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-
-LANES = 1024 * 54  # one fp12_mul at B = 1024: 54 base products per lane
-BATCH = 1024
+LANES = kb.MAIN_WIDTHS[-1]  # one fp12_mul at B = 1024: 54 base products per lane
+BATCH = kb.BATCH
 FORGE_EVERY = 8
 
 
 def log(phase, **kv):
     print(json.dumps({"phase": phase, **kv}), flush=True)
-
-
-def nvidia_smi():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def nvcc_version():
@@ -63,59 +58,13 @@ def nvcc_version():
     return out.strip().splitlines()[-1]
 
 
-def lazy_inputs(rng, n):
-    """[n, 52] f32 LAZY operands in class: normalized-style limbs below
-    limb 47 (|value| < 2^376 < p) times a random weight up to 992, so
-    |limb| <= 2^17 and |value| < 1024p; limbs 47..51 are zero."""
-    x = rng.integers(-128, 129, size=(n, NLIMBS)).astype(np.float64)
-    x[:, 47:] = 0.0
-    w = rng.integers(1, 993, size=(n, 1)) * rng.choice([-1, 1], size=(n, 1))
-    return (x * w).astype(np.float32)
-
-
-def adversarial_rows():
-    """The extremes of tests/test_pallas.py (all limbs +-132, alternating,
-    half and half) and rows at +-2^17 with limbs 50-51 vacant."""
-    half = NLIMBS // 2
-    rows = [
-        np.full(NLIMBS, 132.0),
-        np.full(NLIMBS, -132.0),
-        np.tile([132.0, -132.0], half),
-        np.concatenate([np.full(half, 132.0), np.full(half, -132.0)]),
-    ]
-    big = np.full(NLIMBS, float(1 << 17))
-    big[-2:] = 0.0
-    rows += [big, -big, big * np.tile([1.0, -1.0], half)]
-    return np.array(rows, dtype=np.float32)
-
-
 def limbs_value(row):
     return sum(int(v) << (8 * i) for i, v in enumerate(row))
 
 
-def time_cuda(fn, reps=5, inner=20):
-    """Warm median of `reps` timings, each over `inner` calls, in ms/call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / inner)
-    return statistics.median(times)
-
-
 def kernel_phase(dev):
     rng = np.random.default_rng(0xC0C0)
-    adv = adversarial_rows()
-    nrand = LANES - len(adv) ** 2
-    a_np = np.concatenate([lazy_inputs(rng, nrand), np.repeat(adv, len(adv), axis=0)])
-    b_np = np.concatenate([lazy_inputs(rng, nrand), np.tile(adv, (len(adv), 1))])
+    a_np, b_np, nrand = kb.operands(rng, LANES)
     a = torch.from_numpy(a_np).to(dev)
     b = torch.from_numpy(b_np).to(dev)
 
@@ -136,23 +85,23 @@ def kernel_phase(dev):
     if np.abs(out[:nrand]).max() > 132:
         raise AssertionError("kernel output left the NORMALIZED class")
 
-    out_buf = torch.empty_like(a)
-    ms = time_cuda(lambda: cuda_fp.launch(a, b, out_buf))
-    plain_ms = time_cuda(lambda: cuda_fp.mul_plain(a, b), reps=3, inner=2)
-    small = 3 * BATCH  # one fp2_mul at B = 1024
-    ms_small = time_cuda(lambda: cuda_fp.launch(a[:small], b[:small], out_buf[:small]))
+    # ragged widths, each the last rows (adversarial pairs included)
+    ragged = kb.ragged_widths(cuda_fp.group())
+    kb.check_exact(lambda x, y, o: lambda: cuda_fp.launch(x, y, o), a, b, ragged)
 
-    fma = NLIMBS * NLIMBS + NLIMBS * (NLIMBS + 1) // 2 + NLIMBS * NLIMBS
-    flops = 2 * fma * LANES
-    nbytes = 3 * NLIMBS * 4 * LANES  # two operand rows in, one row out
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    out_buf = torch.empty_like(a)
+    ms_by_lanes, bound_by_lanes = {}, {}
+    for w in kb.MAIN_WIDTHS:
+        aw, bw, ow = a[:w], b[:w], out_buf[:w]
+        ms_by_lanes[str(w)] = kb.time_cuda(lambda: cuda_fp.launch(aw, bw, ow))
+        bound_by_lanes[str(w)] = kb.bound(w)
+    plain_ms = kb.time_cuda(lambda: cuda_fp.mul_plain(a, b), reps=3, inner=2)
+    full = bound_by_lanes[str(LANES)]
     log(
-        "kernel", lanes=LANES, max_abs_err=max_abs_err, decoded_lanes=256,
-        ms=ms, plain_ms=plain_ms, ms_at_3072_lanes=ms_small,
-        bound_ms=bound_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
-        fma_per_lane=fma, bytes=nbytes,
+        "kernel", lanes=LANES, group=cuda_fp.group(), max_abs_err=max_abs_err,
+        decoded_lanes=256, ragged_widths_exact=ragged, ms=ms_by_lanes[str(LANES)],
+        plain_ms=plain_ms, ms_by_lanes=ms_by_lanes, bounds_by_lanes=bound_by_lanes,
+        fma_per_lane=kb.FMA_PER_LANE, bytes=kb.BYTES_PER_LANE * LANES,
     )
     return {
         "name": "fp_mul",
@@ -161,11 +110,13 @@ def kernel_phase(dev):
         "replaces": "coconut_tpu/tpu/pallas_fp.py:301",
         "launches": None,
         "max_abs_err": max_abs_err,
-        "ms": ms,
+        "ms": ms_by_lanes[str(LANES)],
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": full["bound_ms"],
+        "bound_by": full["bound_by"],
         "library_ms": None,
+        "ms_by_lanes": ms_by_lanes,
+        "bound_ms_by_lanes": {w: v["bound_ms"] for w, v in bound_by_lanes.items()},
     }
 
 
@@ -193,6 +144,7 @@ def main_path_phase(card):
     walls = []
     for _ in range(3):
         before = cuda_fp.LAUNCHES
+        cuda_fp.LAUNCH_WIDTHS.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         again = be.batch_verify(sigs, msgs, vk, params)
@@ -206,7 +158,9 @@ def main_path_phase(card):
         raw_wire=be.raw_wire, forged=expect.count(False),
         verdicts_match=True, first_call_s=first_s, fixture_s=fixture_s,
         launches_first_call=launches, plain_calls=plain_calls,
-        launches_per_warm_batch=warm_launches, warm_wall_s=wall,
+        launches_per_warm_batch=warm_launches,
+        launch_widths_per_warm_batch=dict(sorted(cuda_fp.LAUNCH_WIDTHS.items())),
+        warm_wall_s=wall,
         warm_walls_s=walls, verifies_per_s=BATCH / wall, card=card,
     )
     return launches
@@ -216,7 +170,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
     dev = torch.device("cuda")
-    card = nvidia_smi()
+    card = kb.card()
     log(
         "environment", python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda, nvcc=nvcc_version(),
@@ -227,8 +181,8 @@ def main():
     t0 = time.perf_counter()
     lib = cuda_fp.build()
     build_s = time.perf_counter() - t0
-    ptxas = [l.strip() for l in cuda_fp.BUILD_LOG.splitlines() if "registers" in l or "spill" in l]
-    log("build", seconds=build_s, library=str(lib.name), ptxas=ptxas)
+    log("build", seconds=build_s, library=str(lib.name),
+        ptxas=kb.ptxas_report(cuda_fp.BUILD_LOG))
 
     kern = kernel_phase(dev)
     kern["launches"] = main_path_phase(card)

@@ -6,7 +6,8 @@ plain PyTorch version — the counterpart of `coconut_tpu/tpu/pallas_fp.py`.
 at first use and loaded with ctypes); for CPU tensors it runs `mul_plain`,
 the same function in PyTorch. Nothing falls back: a CUDA tensor goes to the
 kernel or raises. `LAUNCHES` counts kernel launches and `PLAIN_CALLS`
-counts calls of the plain version, so a run can show which one it took.
+counts calls of the plain version, so a run can show which one it took;
+`LAUNCH_WIDTHS` counts the launches by their number of lanes.
 
 The plain version repeats the kernel's pipeline step for step (see the
 note at the top of fp_mul.cu and gpu/fp.py) in float64: a * b as sums of
@@ -16,6 +17,7 @@ with their Toeplitz matrices. Every partial sum is an integer far below
 products never run in TF32).
 """
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -45,8 +47,9 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = 0      # kernel launches, counted in `launch`
+LAUNCH_WIDTHS = collections.Counter()  # launches by lanes n, counted in `launch`
 PLAIN_CALLS = 0   # calls of `mul_plain`
-BUILD_LOG = ""    # nvcc's output from the build this process ran, if any
+BUILD_LOG = ""    # nvcc's output (ptxas' report) from the build of the library
 
 _LIB = None
 
@@ -69,13 +72,15 @@ def build():
     """Compile fp_mul.cu into BUILD_DIR unless a library built from the same
     source and flags is already there; returns the library's path. The
     name carries a hash of both, so an edited source never loads a stale
-    library."""
+    library. nvcc's output is kept beside it and read into BUILD_LOG."""
     global BUILD_LOG
     tag = hashlib.sha256(
         SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / ("libcoconut_fp_mul-%s.so" % tag)
+    log = lib.with_suffix(".log")
     if lib.exists():
+        BUILD_LOG = log.read_text() if log.exists() else ""
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(lib.name + ".%d.tmp" % os.getpid())
@@ -87,6 +92,7 @@ def build():
     BUILD_LOG = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed on %s:\n%s" % (SOURCE, BUILD_LOG))
+    log.write_text(BUILD_LOG)
     os.replace(tmp, lib)
     return lib
 
@@ -105,8 +111,15 @@ def _lib():
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
+        lib.coconut_fp_mul_group.argtypes = []
+        lib.coconut_fp_mul_group.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def group():
+    """Threads that work on one lane in the built kernel (G)."""
+    return _lib().coconut_fp_mul_group()
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,6 +186,7 @@ def launch(a, b, out):
     if err != 0:
         raise RuntimeError("fp_mul kernel launch failed: CUDA error %d" % err)
     LAUNCHES += 1
+    LAUNCH_WIDTHS[n] += 1
     return out
 
 

@@ -7,10 +7,12 @@ forged), warms TorchBackend up once, then measures a warm batch three ways:
 
   stages    host wall time (synchronized) and kernel launches of each stage
             of the main path: host encode, comb MSM, affine normalization,
-            Miller loop, final exponentiation, GT == 1 test;
+            Miller loop, final exponentiation, GT == 1 test; and the field
+            kernel's launches of that batch by width (lanes);
   profile   torch.profiler over one warm batch_verify: device time by
-            kernel name, total device-busy time, and the device's idle
-            share of the wall time;
+            kernel name, the field kernel's device time and launches,
+            total device-busy time, and the device's idle share of the
+            wall time;
   card      nvidia-smi's name and power limit.
 
 Prints one JSON object (and writes it to --out when given). Needs a CUDA
@@ -106,6 +108,7 @@ def profile(be, sigs, msgs, vk, params):
         k["count"] += 1
     busy_ms = _union_us(spans) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1]["device_ms"])[:10]
+    ours = [v for k, v in by_kernel.items() if "fp_mul_kernel" in k]
     return {
         "wall_s": wall,
         "profiled_wall_s": profiled_wall,
@@ -113,6 +116,10 @@ def profile(be, sigs, msgs, vk, params):
         "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
         "device_idle_share_profiled": 1.0 - busy_ms / (profiled_wall * 1e3),
         "device_launches": len(spans),
+        "fp_mul": {
+            "device_ms": sum(v["device_ms"] for v in ours),
+            "count": sum(v["count"] for v in ours),
+        },
         "top_kernels": [{"name": k[:80], **v} for k, v in top],
     }
 
@@ -130,9 +137,11 @@ def main(argv=None):
     be = TorchBackend()
     if be.batch_verify(sigs, msgs, vk, params) != expect:
         raise AssertionError("verdicts differ from expected")
+    cuda_fp.LAUNCH_WIDTHS.clear()
     bits, st = stages(be, sigs, msgs, vk, params)
     if bits != expect:
         raise AssertionError("staged verdicts differ from expected")
+    widths = dict(sorted(cuda_fp.LAUNCH_WIDTHS.items()))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -142,6 +151,7 @@ def main(argv=None):
         "window": be.window,
         "stages": st,
         "stages_total_s": sum(v["s"] for v in st.values()),
+        "launch_widths": widths,
         "profile": profile(be, sigs, msgs, vk, params),
         "card": card,
     }

@@ -204,6 +204,25 @@ class TestLimbs:
             assert back == s
 
 
+# --- the kernel's build ------------------------------------------------------
+
+
+def test_kernel_build_keeps_exact_rounding():
+    """The kernel's carries must round half to even, as jnp.round does in
+    the reference: built for sm_90a without fast-math, rounding with rintf
+    and never with roundf (half away from zero) or a (t + 128) >> 8 shift."""
+    flags = " ".join(cuda_fp.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast-math" not in flags and "fast_math" not in flags
+    assert "ftz" not in flags and "prec-div=false" not in flags
+    code = "\n".join(
+        line.split("//")[0] for line in cuda_fp.SOURCE.read_text().splitlines()
+    )
+    assert "rintf(" in code
+    assert "roundf(" not in code and "__float2int_rn" not in code
+    assert ">> 8" not in code and "+ 128" not in code
+
+
 # --- the port's import rule --------------------------------------------------
 
 

@@ -33,7 +33,11 @@ def _lazy(rng, n):
     return (x * w).astype(np.float32)
 
 
-@pytest.mark.parametrize("n", [1, 127, 128, 129, 3072])
+# ragged widths for every lane-group size G in 4..32 (G - 1, G + 1), around
+# a block of 128 threads, and the main path's fp2_mul / fp6_mul widths
+@pytest.mark.parametrize(
+    "n", [1, 3, 5, 7, 9, 15, 17, 31, 33, 127, 128, 129, 3072, 3073, 18432]
+)
 def test_kernel_equals_plain_version(cuda, n):
     rng = np.random.default_rng(n)
     a = torch.from_numpy(_lazy(rng, n)).to(cuda)
@@ -44,11 +48,39 @@ def test_kernel_equals_plain_version(cuda, n):
     assert torch.equal(got.cpu(), cuda_fp.mul_plain(a.cpu(), b.cpu()))
 
 
+def _adversarial():
+    half = NLIMBS // 2
+    rows = [
+        np.full(NLIMBS, 132.0),
+        np.full(NLIMBS, -132.0),
+        np.tile([132.0, -132.0], half),
+        np.concatenate([np.full(half, 132.0), np.full(half, -132.0)]),
+    ]
+    big = np.full(NLIMBS, float(1 << 17))
+    big[-2:] = 0.0
+    rows += [big, -big, big * np.tile([1.0, -1.0], half)]
+    return np.array(rows, dtype=np.float32)
+
+
+def test_kernel_equals_plain_version_adversarial(cuda):
+    """Limbs at +-132 (alternating, half and half) and at +-2^17 with limbs
+    50-51 vacant, every pair of them."""
+    adv = _adversarial()
+    a = torch.from_numpy(np.repeat(adv, len(adv), axis=0)).to(cuda)
+    b = torch.from_numpy(np.tile(adv, (len(adv), 1))).to(cuda)
+    got = cuda_fp.mul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_fp.mul_plain(a, b))
+    assert torch.equal(got.cpu(), cuda_fp.mul_plain(a.cpu(), b.cpu()))
+
+
 def test_fp_mul_on_cuda_launches_the_kernel(cuda):
     a = torch.from_numpy(_lazy(np.random.default_rng(3), 6).reshape(2, 3, NLIMBS)).to(cuda)
     launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    width6 = cuda_fp.LAUNCH_WIDTHS[6]
     out = fp.mul(a, a[0, 0])  # broadcasting, as mul_stack and constants use it
     assert cuda_fp.LAUNCHES == launches + 1 and cuda_fp.PLAIN_CALLS == plain
+    assert cuda_fp.LAUNCH_WIDTHS[6] == width6 + 1
     assert out.shape == a.shape
     assert torch.equal(out.cpu(), cuda_fp.mul_plain(a.cpu(), a[0, 0].cpu()))
 
