@@ -39,6 +39,17 @@ FMA_PER_LANE = NLIMBS * NLIMBS + NLIMBS * (NLIMBS + 1) // 2 + NLIMBS * NLIMBS
 BYTES_PER_LANE = 3 * NLIMBS * 4  # two operand rows in, one row out
 
 CANDIDATES = ((4, 4), (4, 8), (8, 4), (8, 8), (16, 8), (32, 8))
+# Experiments: a candidate built from fp_mul.cu with one text edit. Measured
+# beside the shipped kernel to inform later work; never built by the port.
+#   fadd_round: ties-to-even by adding and subtracting 1.5 * 2^23 (exact for
+#   |t| < 2^30) in place of rintf's FRND instruction.
+EXPERIMENTS = {
+    "g8_b8_fadd_round": (8, 8, "rintf(x[c] * 0.00390625f)",
+                         "__fadd_rn(__fmaf_rn(x[c], 0.00390625f, 12582912.0f), -12582912.0f)"),
+}
+# widths timed beside the main ones: the main path's tiniest launches (2-3
+# lanes) and its B = 1024 base-field products
+EXTRA_WIDTHS = (3, BATCH)
 
 
 def card():
@@ -149,6 +160,27 @@ def ptxas_report(log):
     return out
 
 
+def sass_counts(lib, tag=""):
+    """{opcode: count} of the SASS of the kernels in `lib` whose name holds
+    `tag` (cuobjdump -sass)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    text = subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    counts, take = {}, False
+    for line in text.splitlines():
+        if "Function :" in line:
+            take = tag in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if take and m:
+            op = m.group(1).split(".")[0]
+            counts[op] = counts.get(op, 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
 def check_exact(bind, a, b, widths):
     """Launch `bind(a, b, out)()` on the last w rows for each width w and
     compare with the plain version; raise on the first width that differs."""
@@ -184,10 +216,17 @@ def _build_all(parent):
     out_dir = cuda_fp.BUILD_DIR / "sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for g, minb in CANDIDATES:
-        name = "g%d_b%d" % (g, minb)
+    variants = [("g%d_b%d" % c, c[0], c[1], cuda_fp.SOURCE) for c in CANDIDATES]
+    for name, (g, minb, old, new) in EXPERIMENTS.items():
+        text = cuda_fp.SOURCE.read_text()
+        if old not in text:
+            raise RuntimeError("experiment %s: %r is not in %s" % (name, old, cuda_fp.SOURCE))
+        edited = out_dir / ("fp_mul_%s_edited.cu" % name)
+        edited.write_text(text.replace(old, new))
+        variants.append((name, g, minb, edited))
+    for name, g, minb, source in variants:
         src = out_dir / ("fp_mul_%s.cu" % name)
-        src.write_text(_WRAPPER % (cuda_fp.SOURCE, g, minb, g, minb))
+        src.write_text(_WRAPPER % (source, g, minb, g, minb))
         jobs[name] = (src, out_dir / ("lib_%s.so" % name))
     if parent is not None:
         jobs["parent"] = (Path(parent) / "coconut_tpu_torch/csrc/fp_mul.cu",
@@ -244,7 +283,7 @@ def sweep(parent=None):
             runs[name] = _runner(lib, "coconut_fp_mul", consts)
             row = {"source": "parent"}
         else:
-            g, minb = (int(x) for x in re.findall(r"\d+", name))
+            g, minb = (int(x) for x in re.findall(r"\d+", name)[:2])
             runs[name] = _runner(lib, "sweep_fp_mul", consts)
             lib.sweep_blocks_per_sm.restype = ctypes.c_int
             blocks = lib.sweep_blocks_per_sm()
@@ -255,24 +294,31 @@ def sweep(parent=None):
             tag = "ILi%dELi%dE" % (row["G"], row["minb"])
             ptxas = {k: v for k, v in ptxas.items() if tag in k}
         row["ptxas"] = ptxas
+        row["sass"] = sass_counts(path, "" if name == "parent" else tag)
         widths = sorted(set(ragged_widths(row.get("G", 4)) + ragged_widths(32)
                             + list(MAIN_WIDTHS)))
         check_exact(runs[name], a, b, widths)
         row["exact_widths"] = widths
-        row["ms_by_lanes"] = {str(w): [] for w in MAIN_WIDTHS}
+        row["ms_by_lanes"] = {str(w): [] for w in EXTRA_WIDTHS + MAIN_WIDTHS}
         rows[name] = row
 
     order = list(runs)
     out = torch.empty_like(a)
+    one = torch.empty(1, device=dev)
+    floor_ms = []
     for names in (order, order[::-1]):
-        for w in MAIN_WIDTHS:
+        floor_ms.append(time_cuda(one.zero_))
+        for w in EXTRA_WIDTHS + MAIN_WIDTHS:
             for name in names:
                 launch = runs[name](a[:w], b[:w], out[:w])
                 rows[name]["ms_by_lanes"][str(w)].append(time_cuda(launch))
     return {
         "card": card(),
         "device": torch.cuda.get_device_name(0),
-        "bound_ms_by_lanes": {str(w): bound(w)["bound_ms"] for w in MAIN_WIDTHS},
+        "bound_ms_by_lanes": {str(w): bound(w)["bound_ms"] for w in EXTRA_WIDTHS + MAIN_WIDTHS},
+        # back-to-back launches of a one-element fill: the device's floor
+        # for a kernel that does nothing
+        "launch_floor_ms": floor_ms,
         "kernels": rows,
     }
 

@@ -41,9 +41,10 @@
 //     1/G of the terms (the triangle of a*b is spread evenly), in a fully
 //     unrolled loop: for each v < G, a window ys[d] = y[r - v + G d] of the
 //     second operand is read once into registers, and x[G u + v] of the
-//     first is broadcast to the group and multiplied into acc[u + d]. Rows
-//     in shared memory carry zero padding, so terms outside the product
-//     read zeros and add nothing.
+//     first is broadcast to the group and multiplied into acc[u + d]. The
+//     y rows in shared memory carry zero padding, so window terms outside
+//     the product read zeros and add nothing; x terms past limb 51 are
+//     left out when the loops unroll.
 //   - A carry pass is local: rintf and one fmaf per owned limb, then each
 //     hi moves to the owner of limb k + 1, thread r + 1 of the group (one
 //     __shfl_sync over the group's segment; thread 0 takes thread G-1's hi
@@ -75,19 +76,18 @@ struct Shape {
     static_assert(G >= 4 && G <= 32 && (G & (G - 1)) == 0, "G: 4, 8, 16 or 32");
     static constexpr int LANES = THREADS / G;          // lanes per block
     static constexpr int U = cdiv(NL, G);              // steps u of x[G u + v]
-    static constexpr int XS = U * G;                   // x row, zero past limb 51
     static constexpr int D = (NL + G - 2) / G + 1;     // window ys[0..D)
     static constexpr int YS = G * (D + 1);             // y row: G zeros, limbs, zeros
     static constexpr int RT = cdiv(2 * NL, G);         // c of k = r + G c < 104
     static constexpr int C52 = (NL - 1) / G + 1;       // c that reach some k < 52
     static constexpr int CE = (NL + 2) / G + 1;        // c that reach some k < 55
     static constexpr int CH0 = NL / G;                 // every k < G CH0 is < 52
-    static constexpr int ROW = XS + YS;
+    static constexpr int ROW = NL + YS;                // x row, then y row
     static constexpr int STRIDE = ROW + (G % 32 - ROW % 32 + 32) % 32;  // = G mod 32
 };
 
-// acc[c] += sum_i x[i] * y[r + G c - i] for c < C. x is a lane's row (zero
-// past limb 51); y points at limb 0 of a zero-padded row (y[-G..YS-G)).
+// acc[c] += sum_i x[i] * y[r + G c - i] for c < C. x is a lane's row of 52
+// limbs; y points at limb 0 of a zero-padded row (y[-G..YS-G)).
 template <int G, int C>
 __device__ __forceinline__ void mul_acc(const float* x, const float* y, int r,
                                         float (&acc)[C]) {
@@ -100,6 +100,7 @@ __device__ __forceinline__ void mul_acc(const float* x, const float* y, int r,
         for (int d = 0; d < S::D; ++d) ys[d] = yv[G * d];
 #pragma unroll
         for (int u = 0; u < S::U; ++u) {
+            if (G * u + v >= NL) break;
             const float xi = x[G * u + v];
 #pragma unroll
             for (int d = 0; d < S::D; ++d)
@@ -168,7 +169,7 @@ fp_mul_kernel(const float* __restrict__ a, const float* __restrict__ b,
     const long long lane = (long long)blockIdx.x * S::LANES + slot;
     const bool live = lane < n;
     float* xr = s_lanes + slot * S::STRIDE;  // a, then tlo, m, the result
-    float* yb = xr + S::XS + G;              // b, limb 0 at yb[0]
+    float* yb = xr + NL + G;                 // b, limb 0 at yb[0]
     const float* yp = s_const + G;
     const float* yn = s_const + S::YS + G;
 
@@ -176,7 +177,6 @@ fp_mul_kernel(const float* __restrict__ a, const float* __restrict__ b,
         const int j = i % S::YS - G;
         s_const[i] = (j >= 0 && j < NL) ? consts[(i / S::YS) * NL + j] : 0.0f;
     }
-    for (int i = NL + r; i < S::XS; i += G) xr[i] = 0.0f;
     yb[r - G] = 0.0f;
     for (int i = NL + r; i < S::YS - G; i += G) yb[i] = 0.0f;
     if (live) {
