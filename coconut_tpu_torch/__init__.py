@@ -9,8 +9,9 @@ layout and names and imports nothing from it:
            PyTorch version), tower, curve, pairing, backend (TorchBackend)
   csrc/    CUDA C++ sources, built with nvcc into build/ at first use
   params.py, entry.py, convert.py
-           data holders, the main-path fixture/entry point, and the bridge
-           that carries JAX-encoded operands across for differential tests
+           data holders, the verify and show-verify fixtures and the entry
+           point, and the bridge that carries JAX-encoded operands across
+           for differential tests
 
 Entry points run on `cuda` unless the caller passes device="cpu".
 """

@@ -1,6 +1,7 @@
-"""Entry points of the port's main path: a fixture of PS credentials, the
-three kinds of forged lane, and the fused verify program with example
-operands.
+"""Entry points of the port's paths: a fixture of PS credentials and the
+three kinds of forged lane (verify, BASELINE config 2), a fixture of shown
+credentials and the four kinds of forged show (show-verify, config 3), and
+the fused verify program with example operands.
 
 `fixture` draws from the same seeded sequence as the JAX package's
 `__graft_entry__._fixture`, so one seed gives the same credentials in
@@ -13,7 +14,10 @@ import random
 
 from .ops.curve import G1_GEN, G2_GEN
 from .ops.fields import R
-from .params import Params, SIGNATURES_IN_G1, Sigkey, Signature, Verkey
+from .params import (
+    Params, PoKOfSignatureProof, SchnorrProof, SIGNATURES_IN_G1, Sigkey,
+    Signature, Verkey,
+)
 
 MSG_COUNT = 6  # attributes per credential (BASELINE config 2)
 
@@ -21,7 +25,10 @@ MSG_COUNT = 6  # attributes per credential (BASELINE config 2)
 def fixture(batch, msg_count=MSG_COUNT, seed=0xC0C0):
     """(params, sigkey, verkey, sigs, messages_list) for `batch` valid
     credentials over `msg_count` attributes."""
-    rng = random.Random(seed)
+    return _credentials(random.Random(seed), batch, msg_count)
+
+
+def _credentials(rng, batch, msg_count):
     ctx = SIGNATURES_IN_G1
     g = ctx.sig.mul(G1_GEN, rng.randrange(1, R))
     g_tilde = ctx.other.mul(G2_GEN, rng.randrange(1, R))
@@ -66,6 +73,79 @@ def forge(params, sigs, msgs_list, every=8):
             sigs[i] = Signature(None, None)
         expect[i] = False
     return sigs, msgs_list, expect
+
+
+SHOW_REVEALED = (2, 3, 4, 5)  # BASELINE config 3: 2 hidden / 4 revealed
+
+
+def show_fixture(batch, revealed=SHOW_REVEALED, seed=0xC0C0):
+    """(params, sigkey, verkey, proofs, revealed_msgs_list, challenges):
+    `batch` valid shows of fixture(batch, seed=seed)'s credentials, each
+    revealing the attributes `revealed`.
+
+    r, t, the blindings and the challenge c of each proof are drawn from the
+    fixture's random sequence, after its credentials. The points are those
+    the prover computes for them (sigma'_1 = sigma_1 * r, sigma'_2 =
+    (sigma_2 + sigma_1 * t) * r, J = g_tilde * t + sum_hidden Y_tilde_j *
+    m_j, the commitment sum_k base_k * b_k over [g_tilde, hidden Y_tilde]),
+    computed with the signing key as discrete logs of the bases: two G1 and
+    two G2 scalar multiplications a proof."""
+    rng = random.Random(seed)
+    params, sk, vk, sigs, msgs_list = _credentials(rng, batch, MSG_COUNT)
+    ctx = params.ctx
+    revealed = sorted(set(revealed))
+    hidden = [i for i in range(MSG_COUNT) if i not in revealed]
+    logs = [1] + [sk.y[i] for i in hidden]  # the bases over g_tilde
+    proofs, revealed_msgs_list, challenges = [], [], []
+    for sig, msgs in zip(sigs, msgs_list):
+        r = rng.randrange(1, R)
+        t = rng.randrange(1, R)
+        blindings = [rng.randrange(R) for _ in logs]
+        c = rng.randrange(R)
+        e = (sk.x + sum(y * m for y, m in zip(sk.y, msgs))) % R
+        s1 = ctx.sig.mul(sig.sigma_1, r)
+        secrets = [t] + [msgs[i] for i in hidden]
+        J = ctx.other.mul(params.g_tilde, sum(a * s for a, s in zip(logs, secrets)) % R)
+        T = ctx.other.mul(params.g_tilde, sum(a * b for a, b in zip(logs, blindings)) % R)
+        responses = [(b - c * s) % R for b, s in zip(blindings, secrets)]
+        proofs.append(PoKOfSignatureProof(
+            s1, ctx.sig.mul(s1, (e + t) % R), J, SchnorrProof(T, responses), revealed
+        ))
+        revealed_msgs_list.append({i: msgs[i] for i in revealed})
+        challenges.append(c)
+    return params, sk, vk, proofs, revealed_msgs_list, challenges
+
+
+SHOW_FORGERIES = (
+    "wrong_revealed_value", "corrupted_response", "doubled_sigma_prime_2",
+    "identity_sigma_prime_1",
+)
+
+
+def forge_shows(params, proofs, revealed_msgs_list, every=8):
+    """Forge one show in `every` (lanes every-1, 2*every-1, ...), cycling
+    through the four kinds: the lowest revealed value bumped by one, the
+    first Schnorr response bumped by one, sigma'_2 doubled, and an identity
+    sigma'_1 (both sigma' None). Returns new lists and the expected verdict
+    per lane."""
+    proofs, rmsgs = list(proofs), [dict(m) for m in revealed_msgs_list]
+    expect = [True] * len(proofs)
+    for n, i in enumerate(range(every - 1, len(proofs), every)):
+        kind = SHOW_FORGERIES[n % len(SHOW_FORGERIES)]
+        p = proofs[i]
+        s1, s2, vc = p.sigma_prime_1, p.sigma_prime_2, p.proof_vc
+        if kind == "wrong_revealed_value":
+            j = min(rmsgs[i])
+            rmsgs[i][j] = (rmsgs[i][j] + 1) % R
+        elif kind == "corrupted_response":
+            vc = SchnorrProof(vc.t, [(vc.responses[0] + 1) % R] + vc.responses[1:])
+        elif kind == "doubled_sigma_prime_2":
+            s2 = params.ctx.sig.mul(s2, 2)
+        else:
+            s1 = s2 = None
+        proofs[i] = PoKOfSignatureProof(s1, s2, p.J, vc, p.revealed_msg_indices)
+        expect[i] = False
+    return proofs, rmsgs, expect
 
 
 def entry(batch=64, device=None):

@@ -1,5 +1,6 @@
-"""TorchBackend — batched PS-credential verification on the GPU, the port of
-the verify path of `coconut_tpu/tpu/backend.py`:
+"""TorchBackend — batched PS-credential verification and selective-
+disclosure show verification on the GPU, the port of the verify and
+show-verify paths of `coconut_tpu/tpu/backend.py`:
 
   host (Python ints)
     -> encode_verify_batch: per-verkey comb tables (LRU), g_tilde
@@ -7,6 +8,11 @@ the verify path of `coconut_tpu/tpu/backend.py`:
     -> fused_verify: comb MSM -> affine -> two-pair Miller loop
        -> final exponentiation -> GT == 1                        [device]
     -> one bool per credential
+
+  encode_show_verify_batch / fused_show_verify (BASELINE config 3): the
+  same, plus the Schnorr check of each proof (comb MSM over g_tilde and
+  the hidden Y_tilde, the distinct MSM J^c, one affine compare with the
+  commitment t) and J joined to the pairing accumulator.
 
 Every field product runs through gpu/fp.mul: the CUDA kernel on `cuda`,
 its plain PyTorch version on `cpu`. Results are bit-identical to the
@@ -36,6 +42,8 @@ _G2_LATER = (
     "slice of the port; this slice verifies ctx 'G1'"
 )
 
+_SIGNED_NWIN = 52  # signed 5-bit windows covering the 255-bit Fr
+
 
 def resolve_device(device=None):
     """torch.device for an entry point: `cuda` unless the caller names
@@ -54,6 +62,21 @@ def comb_schedule(window):
     29 windows / 257 entries at 9 bits, 43 / 33 at 6 bits. The windows
     cover 256 bits, so the top signed digit always absorbs the carry."""
     return window, -(-256 // window), (1 << (window - 1)) + 1
+
+
+def _signed_digits(scalars_batch, device, nwin=_SIGNED_NWIN, window=5):
+    """[B][k] ints -> (mag, sgn bool) [B, k, nwin] signed window digits on
+    `device`, msb first (mag uint8 up to window 8, int16 at 9). The default
+    5-bit/52 schedule is the distinct MSM's; the comb paths pass the
+    backend's comb schedule."""
+    B = len(scalars_batch)
+    k = len(scalars_batch[0]) if B else 0
+    flat = [s for row in scalars_batch for s in row]
+    mag, sgn = fr_digits_signed_np(flat, nwin=nwin, window=window)
+    return (
+        torch.from_numpy(mag.reshape(B, k, nwin)).to(device),
+        torch.from_numpy(sgn.reshape(B, k, nwin)).to(device),
+    )
 
 
 def _build_tables(spec_ops, bases, entries, device):
@@ -134,12 +157,60 @@ def fused_verify(sig_is_g1, wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2):
     return verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2)
 
 
+def fused_show_verify(
+    sig_is_g1, vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j,
+    commx, commy, comminf, acc_wtables, acc_mag, acc_sgn, s1, s2n, gtx, gty,
+    inf1, inf2,
+):
+    """Batched PoKOfSignatureProof.verify (BASELINE config 3). Two checks
+    per proof:
+
+      1. Schnorr: prod_k bases_k^{resp_ik} * J_i^{c_i} == t_i, bases =
+         [g_tilde, hidden Y_tilde]: a comb MSM plus the k = 1 distinct MSM
+         J^c, compared in affine form with the commitment t (both
+         identities is a match, one identity is not);
+      2. pairing: e(sigma'_1, J * X_tilde * prod_rev Y_tilde^m) *
+         e(-sigma'_2, g_tilde) == 1 — the comb MSM over [X_tilde,
+         revealed Y_tilde] with scalars [1, m_rev..], J joined by one add,
+         then verify_tail.
+
+    jpt: J as (x, y) coordinate pairs [B] and jinf its identity mask;
+    cmag_j/csgn_j: the challenges' signed 5-bit digits [B, 1, 52];
+    commx/commy/comminf: the commitment t. The rest as in fused_verify.
+    All proofs share one revealed-index set. Returns bool [B]."""
+    if not sig_is_g1:
+        raise NotImplementedError(_G2_LATER)
+    jpt, commx, commy = _pts_f32((jpt, commx, commy))
+    fl = cv.FP2
+
+    # Schnorr check; the two to_affine inversions stay separate, as in the
+    # reference
+    vc = cv.msm_shared_comb(fl, vc_wtables, resp_mag, resp_sgn)
+    lift = lambda t: t[:, None]
+    jterm = cv.msm_distinct_signed(
+        fl, tw.tree_map(lift, jpt[0]), tw.tree_map(lift, jpt[1]),
+        jinf[:, None], cmag_j, csgn_j,
+    )
+    lx, ly, linf = cv.to_affine(fl, cv.jadd(fl, vc, jterm))
+    schnorr_ok = (
+        fl.eq(lx, commx) & fl.eq(ly, commy) & ~linf & ~comminf
+    ) | (linf & comminf)
+
+    # pairing check
+    acc = cv.msm_shared_comb(fl, acc_wtables, acc_mag, acc_sgn)
+    acc = cv.jadd(fl, acc, cv.affine_to_jacobian(fl, jpt[0], jpt[1], jinf))
+    pair_ok = verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2)
+    return schnorr_ok & pair_ok
+
+
 class TorchBackend:
-    """Batched PyTorch/CUDA backend with the verify surface of JaxBackend.
+    """Batched PyTorch/CUDA backend with the verify and show-verify surface
+    of JaxBackend.
 
     Reads its inputs by duck typing: sig.sigma_1 / sig.sigma_2 (affine int
-    tuples or None), vk.X_tilde / vk.Y_tilde, params.g, params.g_tilde and
-    params.ctx.name — the JAX package's own objects work unchanged.
+    tuples or None), the proof fields of encode_show_verify_batch,
+    vk.X_tilde / vk.Y_tilde, params.g, params.g_tilde and params.ctx.name —
+    the JAX package's own objects work unchanged.
 
     device: `cuda` by default (raises without a card); `cpu` runs the
     plain PyTorch multiply. comb_window: signed comb window, 9 on cuda
@@ -212,16 +283,21 @@ class TorchBackend:
             self._comb_cache.put(key, wt)
         return wt
 
-    def _static_operands(self, vk, params, build):
+    def _static_operands(self, kind, vk, params, extra, build):
         """The per-(verkey, params) invariant half of an encode, LRU-cached
-        under the verkey and params coordinate ints."""
+        under the program kind ("verify" / "show"), the verkey and params
+        coordinate ints, the comb window and `extra` (the show path's
+        revealed-index set): each program and each revealed set gets its
+        own entry, as in the reference."""
         key = (
+            kind,
             params.ctx.name,
             vk.X_tilde,
             tuple(vk.Y_tilde),
             params.g,
             params.g_tilde,
             self.window,
+            extra,
         )
         val = self._static_cache.get(key)
         if val is not None:
@@ -233,15 +309,9 @@ class TorchBackend:
         return val
 
     def _comb_digits(self, scalars_batch):
-        """[B][k] ints -> (mag, sgn) [B, k, nwin] signed comb digits on the
-        device (mag uint8 up to window 8, int16 at 9)."""
-        B = len(scalars_batch)
-        k = len(scalars_batch[0]) if B else 0
-        flat = [s for row in scalars_batch for s in row]
-        mag, sgn = fr_digits_signed_np(flat, nwin=self.nwin, window=self.window)
-        return (
-            torch.from_numpy(mag.reshape(B, k, self.nwin)).to(self.device),
-            torch.from_numpy(sgn.reshape(B, k, self.nwin)).to(self.device),
+        """Signed digits on the backend's comb schedule."""
+        return _signed_digits(
+            scalars_batch, self.device, nwin=self.nwin, window=self.window
         )
 
     # -- fused hot path ------------------------------------------------------
@@ -256,7 +326,7 @@ class TorchBackend:
             bases = [vk.X_tilde] + list(vk.Y_tilde)
             return (self._comb_tables(bases),) + self._encode_gt(params)
 
-        wtables, gtx, gty = self._static_operands(vk, params, build)
+        wtables, gtx, gty = self._static_operands("verify", vk, params, None, build)
         mag, sgn = self._comb_digits(
             [[1] + [m % R for m in msgs] for msgs in messages_list]
         )
@@ -272,13 +342,90 @@ class TorchBackend:
         if not sigs:
             return lambda: []
         operands = self.encode_verify_batch(sigs, messages_list, vk, params)
-        bits = fused_verify(params.ctx.name == "G1", *operands)
-
-        def finalize():
-            return [bool(b) for b in bits.cpu().tolist()]
-
-        return finalize
+        return _finalizer(fused_verify(params.ctx.name == "G1", *operands))
 
     def batch_verify(self, sigs, messages_list, vk, params):
         """Fully fused batched PS verification: one bool per credential."""
         return self.batch_verify_async(sigs, messages_list, vk, params)()
+
+    def encode_show_verify_batch(
+        self, proofs, vk, params, revealed_msgs_list, challenges
+    ):
+        """Host-side encoding of a show-verify batch into the
+        fused_show_verify operand tuple (everything after sig_is_g1).
+
+        Reads proofs by duck typing: p.sigma_prime_1, p.sigma_prime_2, p.J,
+        p.proof_vc.t, p.proof_vc.responses, p.revealed_msg_indices; the
+        revealed set is proofs[0]'s. revealed_msgs_list holds one
+        {index: message} map per proof."""
+        if params.ctx.name != "G1":
+            raise NotImplementedError(_G2_LATER)
+        shown = proofs[0].revealed_msg_indices
+        revealed = sorted(shown)
+        hidden = [i for i in range(len(vk.Y_tilde)) if i not in shown]
+
+        def build():
+            vc_bases = [params.g_tilde] + [vk.Y_tilde[i] for i in hidden]
+            acc_bases = [vk.X_tilde] + [vk.Y_tilde[i] for i in revealed]
+            return (
+                self._comb_tables(vc_bases),
+                self._comb_tables(acc_bases),
+            ) + self._encode_gt(params)
+
+        vc_wtables, acc_wtables, gtx, gty = self._static_operands(
+            "show", vk, params, tuple(revealed), build
+        )
+
+        # Schnorr operands
+        resp_mag, resp_sgn = self._comb_digits(
+            [[r % R for r in p.proof_vc.responses] for p in proofs]
+        )
+        jpt, jinf = self._encode_g2_points([p.J for p in proofs])
+        cmag_j, csgn_j = _signed_digits([[c % R] for c in challenges], self.device)
+        (commx, commy), comminf = self._encode_g2_points(
+            [p.proof_vc.t for p in proofs]
+        )
+
+        # pairing operands
+        acc_mag, acc_sgn = self._comb_digits(
+            [[1] + [rm[i] % R for i in revealed] for rm in revealed_msgs_list]
+        )
+        s1, inf1 = self._encode_g1_points([p.sigma_prime_1 for p in proofs])
+        s2n, inf2 = self._encode_g1_points(
+            [
+                None if p.sigma_prime_2 is None else _g1.neg(p.sigma_prime_2)
+                for p in proofs
+            ]
+        )
+        return (
+            vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j,
+            commx, commy, comminf, acc_wtables, acc_mag, acc_sgn,
+            s1, s2n, gtx, gty, inf1, inf2,
+        )
+
+    def batch_show_verify_async(
+        self, proofs, vk, params, revealed_msgs_list, challenges
+    ):
+        """Encode and enqueue the fused show verify on the device; returns a
+        zero-arg finalizer that waits for the bits."""
+        if not proofs:
+            return lambda: []
+        operands = self.encode_show_verify_batch(
+            proofs, vk, params, revealed_msgs_list, challenges
+        )
+        return _finalizer(fused_show_verify(params.ctx.name == "G1", *operands))
+
+    def batch_show_verify(self, proofs, vk, params, revealed_msgs_list, challenges):
+        """Batched selective-disclosure proof verification (BASELINE config
+        3): one bool per proof. All proofs must share proofs[0]'s
+        revealed-index set; the protocol layer recomputes the Fiat-Shamir
+        challenges and verifies ragged batches proof by proof."""
+        return self.batch_show_verify_async(
+            proofs, vk, params, revealed_msgs_list, challenges
+        )()
+
+
+def _finalizer(bits):
+    """Zero-arg function that waits for a device bool [B] and returns it as
+    a list of Python bools."""
+    return lambda: [bool(b) for b in bits.cpu().tolist()]

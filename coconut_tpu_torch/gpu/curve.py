@@ -1,5 +1,6 @@
-"""Batched G1/G2 complete projective arithmetic and the shared-base comb
-MSM — the port of the verify slice's half of `coconut_tpu/tpu/curve.py`.
+"""Batched G1/G2 complete projective arithmetic, the shared-base comb MSM
+and the distinct-base signed MSM — the port of the verify and show-verify
+slices' half of `coconut_tpu/tpu/curve.py`.
 
 Point formulas are the Renes-Costello-Batina (2015) COMPLETE projective
 addition/doubling for a = 0: valid for every pair of inputs including the
@@ -120,6 +121,57 @@ def to_affine(fl, p):
     X, Y, Z = p
     zinv = fl.inv(Z)
     return fl.mul(X, zinv), fl.mul(Y, zinv), fl.is_zero(Z)
+
+
+def affine_to_jacobian(fl, x, y, inf):
+    """Affine points + identity mask -> projective (x : y : 1), or the
+    identity (0 : 1 : 0) where `inf` is set."""
+    one = fl.ones(inf.shape, inf.device)
+    zero = fl.zeros(inf.shape, inf.device)
+    return (
+        fl.select(inf, zero, x),
+        fl.select(inf, one, y),
+        fl.select(inf, zero, one),
+    )
+
+
+def build_tables_device(fl, x, y, inf, entries=16):
+    """Per-point projective multiples 0..entries-1 on the device, for the
+    windowed MSMs. x, y: affine points [..., k]; inf: bool [..., k].
+    Returns points with leaves [..., k, entries, L]. Entry 0 is the
+    identity and entry i is jadd(entry i-1, P), the reference's order of
+    adds, so the limbs match it exactly."""
+    jac = affine_to_jacobian(fl, x, y, inf)
+    rows = [jinfinity(fl, inf.shape, inf.device)]
+    for _ in range(1, entries):
+        rows.append(jadd(fl, rows[-1], jac))
+    return tree_map(lambda *ts: torch.stack(ts, dim=inf.dim()), *rows)
+
+
+def msm_distinct_signed(fl, x, y, inf, mag, sgn):
+    """Signed 5-bit windowed MSM over per-row bases (each credential brings
+    its own points, so the tables are built on the device).
+
+    x, y, inf: affine points [..., k]; mag/sgn: signed window digits
+    [..., k, nwin], msb first (digit = (-1)^sgn * mag, mag <= 16). Horner:
+    per window 5 doublings, then one add per base in base order. Returns a
+    projective accumulator with leading dims [...]."""
+    tables = build_tables_device(fl, x, y, inf, entries=17)
+    k = inf.shape[-1]
+    idx = mag.long()[..., None]  # gather indices are long: uint8 would mask
+
+    def leaf(t):  # [..., k, 17, L] -> [..., k, nwin, L]
+        return torch.take_along_dim(t, idx, dim=-2)
+
+    X, Y, Z = (tree_map(leaf, t) for t in tables)
+    Y = fl.select(sgn, fl.neg(Y), Y)
+    acc = jinfinity(fl, inf.shape[:-1], inf.device)
+    for w in range(mag.shape[-1]):
+        for _ in range(5):
+            acc = jdouble(fl, acc)
+        for j in range(k):
+            acc = jadd(fl, acc, tree_map(lambda t: t[..., j, w, :], (X, Y, Z)))
+    return acc
 
 
 def fold_points(fl, pts, n, axis_offset=0, chunk=16):

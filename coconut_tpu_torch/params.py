@@ -1,9 +1,13 @@
-"""Minimal data holders for the verify slice: a G1 group context and the
-Params / Signature / Verkey shapes the backend reads.
+"""Minimal data holders for the verify and show-verify slices: a G1 group
+context and the Params / Signature / Verkey / proof shapes the backend
+reads.
 
 TorchBackend reads these by duck typing (sig.sigma_1, sig.sigma_2,
-vk.X_tilde, vk.Y_tilde, params.g, params.g_tilde, params.ctx.name), so
-any objects with those attributes work, the JAX package's own included.
+vk.X_tilde, vk.Y_tilde, params.g, params.g_tilde, params.ctx.name, and a
+proof's sigma_prime_1, sigma_prime_2, J, proof_vc.t, proof_vc.responses,
+revealed_msg_indices), so any objects with those attributes work, the JAX
+package's own included. The holders carry data only: the prover and the
+Fiat-Shamir challenge are not part of the port yet.
 """
 
 from .ops.curve import g1, g2
@@ -54,3 +58,26 @@ class Verkey:
     def __init__(self, X_tilde, Y_tilde):
         self.X_tilde = X_tilde
         self.Y_tilde = list(Y_tilde)
+
+
+class SchnorrProof:
+    """Response phase of a Schnorr proof of committed values: the
+    commitment t (a point) and one response b_i - c * s_i mod r a base."""
+
+    def __init__(self, t, responses):
+        self.t = t
+        self.responses = list(responses)
+
+
+class PoKOfSignatureProof:
+    """A shown credential: the re-randomized signature (sigma'_1,
+    sigma'_2), J = g_tilde^t * prod_hidden Y_tilde_j^{m_j}, the Schnorr
+    proof of its opening and the set of revealed message indices."""
+
+    def __init__(self, sigma_prime_1, sigma_prime_2, J, proof_vc,
+                 revealed_msg_indices):
+        self.sigma_prime_1 = sigma_prime_1
+        self.sigma_prime_2 = sigma_prime_2
+        self.J = J
+        self.proof_vc = proof_vc
+        self.revealed_msg_indices = set(revealed_msg_indices)

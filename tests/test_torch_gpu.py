@@ -1,6 +1,6 @@
 """Card-only tests of the port: the CUDA Montgomery kernel against its plain
-PyTorch version on the GPU, the wrapper's checks, and the main path on
-`cuda` against the same path on the CPU.
+PyTorch version on the GPU, the wrapper's checks, and the verify and
+show-verify paths on `cuda` against the same paths on the CPU.
 
 Marked `gpu`; each test skips where no CUDA card is present. On a machine
 with one: `python -m pytest tests/test_torch_gpu.py -q`. Tolerance: exact
@@ -110,3 +110,17 @@ def test_batch_verify_on_cuda_matches_cpu_and_expected(cuda):
         assert be.batch_verify(sigs, msgs, vk, params) == expect
         assert cuda_fp.PLAIN_CALLS == plain
     assert TorchBackend(device="cpu", comb_window=4).batch_verify(sigs, msgs, vk, params) == expect
+
+
+def test_batch_show_verify_on_cuda_matches_cpu_and_expected(cuda):
+    """B = 64 shows, one in 8 forged (each of the four kinds twice), at the
+    card's window 9 and raw wire against the CPU's window 6 and int16
+    wire."""
+    params, _, vk, proofs, rmsgs, challenges = entry.show_fixture(64)
+    proofs, rmsgs, expect = entry.forge_shows(params, proofs, rmsgs, every=8)
+    plain = cuda_fp.PLAIN_CALLS
+    got = TorchBackend().batch_show_verify(proofs, vk, params, rmsgs, challenges)
+    assert cuda_fp.PLAIN_CALLS == plain
+    assert got == expect
+    cpu = TorchBackend(device="cpu").batch_show_verify(proofs, vk, params, rmsgs, challenges)
+    assert cpu == got
