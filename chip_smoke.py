@@ -19,7 +19,16 @@ Phases, one line each (plus the kernel table and the result line):
      window 9, raw wire, one lane in 8 forged three ways — bits must
      equal the expected verdicts, the main-path run must launch the
      kernel and never the plain version; warm wall time, verifies/s and
-     the kernel's launches of one warm batch by width.
+     the kernel's launches of one warm batch by width;
+  5. show path: TorchBackend().batch_show_verify at B = 1024 (BASELINE
+     config 3: 6 attributes, {2, 3, 4, 5} revealed), window 9, raw wire,
+     one show in 8 forged four ways — the same checks on the cold call and
+     three warm calls; warm wall time, show-verifies/s and the launches of
+     one warm batch by width.
+
+Each path's first call runs with the kernel's counts set to 0 just before
+it and read just after; the kernel table's `launches` is their sum, and
+`launches_by_path` holds each.
 
 Any failed check raises (non-zero exit). The last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the kernel table.
@@ -120,17 +129,15 @@ def kernel_phase(dev):
     }
 
 
-def main_path_phase(card):
-    t0 = time.perf_counter()
-    params, _, vk, sigs, msgs = entry.fixture(BATCH)
-    sigs, msgs, expect = entry.forge(params, sigs, msgs, every=FORGE_EVERY)
-    fixture_s = time.perf_counter() - t0
-
-    be = TorchBackend()  # cuda, window 9, raw wire
+def drive(run, expect):
+    """Run a path once cold, with the kernel's counts set to 0 just before
+    and read just after, then three times warm. Every run's bits must equal
+    `expect`; the cold run must launch the kernel and never the plain
+    version. Returns the cold call's time and counts and the warm walls."""
     cuda_fp.LAUNCHES = 0
     cuda_fp.PLAIN_CALLS = 0
     t0 = time.perf_counter()
-    bits = be.batch_verify(sigs, msgs, vk, params)
+    bits = run()
     first_s = time.perf_counter() - t0
     launches, plain_calls = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
     if bits != expect:
@@ -138,7 +145,7 @@ def main_path_phase(card):
         raise AssertionError("verdicts differ from expected at lanes %s" % wrong[:16])
     if launches == 0 or plain_calls != 0:
         raise AssertionError(
-            "main path ran %d kernel launches and %d plain calls" % (launches, plain_calls)
+            "the path ran %d kernel launches and %d plain calls" % (launches, plain_calls)
         )
 
     walls = []
@@ -147,23 +154,57 @@ def main_path_phase(card):
         cuda_fp.LAUNCH_WIDTHS.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        again = be.batch_verify(sigs, msgs, vk, params)
+        again = run()
         walls.append(time.perf_counter() - t0)
         warm_launches = cuda_fp.LAUNCHES - before
         if again != expect:
             raise AssertionError("warm verdicts differ from expected")
-    wall = statistics.median(walls)
+    return {
+        "verdicts_match": True,
+        "first_call_s": first_s,
+        "launches_first_call": launches,
+        "plain_calls": plain_calls,
+        "launches_per_warm_batch": warm_launches,
+        "launch_widths_per_warm_batch": dict(sorted(cuda_fp.LAUNCH_WIDTHS.items())),
+        "warm_wall_s": statistics.median(walls),
+        "warm_walls_s": walls,
+    }
+
+
+def main_path_phase(card):
+    t0 = time.perf_counter()
+    params, _, vk, sigs, msgs = entry.fixture(BATCH)
+    sigs, msgs, expect = entry.forge(params, sigs, msgs, every=FORGE_EVERY)
+    fixture_s = time.perf_counter() - t0
+
+    be = TorchBackend()  # cuda, window 9, raw wire
+    res = drive(lambda: be.batch_verify(sigs, msgs, vk, params), expect)
     log(
         "main_path", batch=BATCH, attrs=entry.MSG_COUNT, window=be.window,
-        raw_wire=be.raw_wire, forged=expect.count(False),
-        verdicts_match=True, first_call_s=first_s, fixture_s=fixture_s,
-        launches_first_call=launches, plain_calls=plain_calls,
-        launches_per_warm_batch=warm_launches,
-        launch_widths_per_warm_batch=dict(sorted(cuda_fp.LAUNCH_WIDTHS.items())),
-        warm_wall_s=wall,
-        warm_walls_s=walls, verifies_per_s=BATCH / wall, card=card,
+        raw_wire=be.raw_wire, forged=expect.count(False), fixture_s=fixture_s,
+        **res, verifies_per_s=BATCH / res["warm_wall_s"], card=card,
     )
-    return launches
+    return res["launches_first_call"]
+
+
+def show_path_phase(card):
+    t0 = time.perf_counter()
+    params, _, vk, proofs, rmsgs, challenges = entry.show_fixture(BATCH)
+    proofs, rmsgs, expect = entry.forge_shows(params, proofs, rmsgs, every=FORGE_EVERY)
+    fixture_s = time.perf_counter() - t0
+
+    be = TorchBackend()  # cuda, window 9, raw wire
+    res = drive(
+        lambda: be.batch_show_verify(proofs, vk, params, rmsgs, challenges), expect
+    )
+    log(
+        "show_path", batch=BATCH, attrs=entry.MSG_COUNT,
+        revealed=list(entry.SHOW_REVEALED), window=be.window, raw_wire=be.raw_wire,
+        forged=expect.count(False), forged_kinds=list(entry.SHOW_FORGERIES),
+        fixture_s=fixture_s, **res,
+        show_verifies_per_s=BATCH / res["warm_wall_s"], card=card,
+    )
+    return res["launches_first_call"]
 
 
 def main():
@@ -185,7 +226,9 @@ def main():
         ptxas=kb.ptxas_report(cuda_fp.BUILD_LOG))
 
     kern = kernel_phase(dev)
-    kern["launches"] = main_path_phase(card)
+    by_path = {"verify": main_path_phase(card), "show": show_path_phase(card)}
+    kern["launches"] = sum(by_path.values())
+    kern["launches_by_path"] = by_path
     print(json.dumps({"kernels": [kern]}), flush=True)
     print(json.dumps({
         "ok": True,

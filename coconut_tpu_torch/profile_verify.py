@@ -1,18 +1,23 @@
-"""Where the time of one batched verify goes, on the GPU.
+"""Where the time of one batched verify or show verify goes, on the GPU.
 
-    python3 -m coconut_tpu_torch.profile_verify [--batch 1024] [--out FILE]
+    python3 -m coconut_tpu_torch.profile_verify [--path verify|show]
+        [--batch 1024] [--out FILE]
 
-Builds the entry fixture (B credentials, 6 attributes, one lane in 8
-forged), warms TorchBackend up once, then measures a warm batch three ways:
+Builds the path's entry fixture (B credentials, 6 attributes, one lane in 8
+forged; for `show`, shows revealing attributes {2, 3, 4, 5}), warms
+TorchBackend up once, then measures a warm batch three ways:
 
   stages    host wall time (synchronized) and kernel launches of each stage
-            of the main path: host encode, comb MSM, affine normalization,
-            Miller loop, final exponentiation, GT == 1 test; and the field
+            of the path: for `verify` host encode, comb MSM, affine
+            normalization, Miller loop, final exponentiation, GT == 1
+            test; for `show` host encode, the Schnorr comb MSM, the
+            distinct MSM J^c, the Schnorr affine normalization and compare,
+            the pairing comb MSM + the add of J, then affine, Miller, final
+            exponentiation and GT test as for `verify`; and the field
             kernel's launches of that batch by width (lanes);
-  profile   torch.profiler over one warm batch_verify: device time by
-            kernel name, the field kernel's device time and launches,
-            total device-busy time, and the device's idle share of the
-            wall time;
+  profile   torch.profiler over one warm batch: device time by kernel name,
+            the field kernel's device time and launches, total device-busy
+            time, and the device's idle share of the wall time;
   card      nvidia-smi's name and power limit.
 
 Prints one JSON object (and writes it to --out when given). Needs a CUDA
@@ -43,13 +48,9 @@ def _stage(fn):
     return out, {"s": time.perf_counter() - t0, "launches": cuda_fp.LAUNCHES - before}
 
 
-def stages(be, sigs, msgs, vk, params):
-    """The fused verify's stages, run one after another as fused_verify and
-    verify_tail run them, each timed to a device synchronize."""
-    out = {}
-    ops, out["encode"] = _stage(lambda: be.encode_verify_batch(sigs, msgs, vk, params))
-    wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2 = ops
-    acc, out["comb_msm"] = _stage(lambda: cv.msm_shared_comb(cv.FP2, wtables, mag, sgn))
+def _tail_stages(out, acc, s1, s2n, gtx, gty, inf1, inf2, ok=None):
+    """verify_tail's stages, one after another, into `out`; `ok` is and-ed
+    into the bits (the show path's Schnorr verdicts)."""
 
     def affine():
         pts = _pts_f32((s1, s2n, gtx, gty))
@@ -62,7 +63,65 @@ def stages(be, sigs, msgs, vk, params):
         )
     )
     fe, out["final_exp"] = _stage(lambda: pr.final_exp(f))
-    bits, out["is_one"] = _stage(lambda: (tw.fp12_is_one(fe) & ~inf1).cpu().tolist())
+
+    def is_one():
+        bits = tw.fp12_is_one(fe) & ~inf1
+        return (bits if ok is None else bits & ok).cpu().tolist()
+
+    bits, out["is_one"] = _stage(is_one)
+    return bits
+
+
+def stages(be, sigs, msgs, vk, params):
+    """The fused verify's stages, run one after another as fused_verify and
+    verify_tail run them, each timed to a device synchronize."""
+    out = {}
+    ops, out["encode"] = _stage(lambda: be.encode_verify_batch(sigs, msgs, vk, params))
+    wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2 = ops
+    acc, out["comb_msm"] = _stage(lambda: cv.msm_shared_comb(cv.FP2, wtables, mag, sgn))
+    return _tail_stages(out, acc, s1, s2n, gtx, gty, inf1, inf2), out
+
+
+def show_stages(be, proofs, vk, params, rmsgs, challenges):
+    """The fused show verify's stages, run one after another as
+    fused_show_verify runs them, each timed to a device synchronize. The
+    wire points J and t enter the field arithmetic in the first device
+    stage."""
+    out = {}
+    ops, out["encode"] = _stage(
+        lambda: be.encode_show_verify_batch(proofs, vk, params, rmsgs, challenges)
+    )
+    (vc_wt, rmag, rsgn, jpt, jinf, cmag, csgn, commx, commy, comminf,
+     acc_wt, amag, asgn, s1, s2n, gtx, gty, inf1, inf2) = ops
+    fl = cv.FP2
+
+    def schnorr_comb():
+        pts = _pts_f32((jpt, commx, commy))
+        return pts, cv.msm_shared_comb(fl, vc_wt, rmag, rsgn)
+
+    ((jpt, commx, commy), vc), out["schnorr_comb_msm"] = _stage(schnorr_comb)
+    lift = lambda t: t[:, None]
+    jterm, out["distinct_msm"] = _stage(
+        lambda: cv.msm_distinct_signed(
+            fl, tw.tree_map(lift, jpt[0]), tw.tree_map(lift, jpt[1]),
+            jinf[:, None], cmag, csgn,
+        )
+    )
+
+    def schnorr_compare():
+        lx, ly, linf = cv.to_affine(fl, cv.jadd(fl, vc, jterm))
+        return (fl.eq(lx, commx) & fl.eq(ly, commy) & ~linf & ~comminf) | (
+            linf & comminf
+        )
+
+    schnorr_ok, out["schnorr_affine_compare"] = _stage(schnorr_compare)
+    acc, out["pairing_comb_msm_jadd"] = _stage(
+        lambda: cv.jadd(
+            fl, cv.msm_shared_comb(fl, acc_wt, amag, asgn),
+            cv.affine_to_jacobian(fl, jpt[0], jpt[1], jinf),
+        )
+    )
+    bits = _tail_stages(out, acc, s1, s2n, gtx, gty, inf1, inf2, ok=schnorr_ok)
     return bits, out
 
 
@@ -76,8 +135,8 @@ def _union_us(spans):
     return total
 
 
-def profile(be, sigs, msgs, vk, params):
-    """torch.profiler over one warm batch_verify: the device's kernels by
+def profile(run):
+    """torch.profiler over one warm batch, `run()`: the device's kernels by
     name, and its busy time as the union of their intervals. GPU-side spans
     of operators and annotations (`aten::*`), which cover the kernels they
     launched, are left out so no kernel is counted twice. The idle share is
@@ -89,11 +148,11 @@ def profile(be, sigs, msgs, vk, params):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    be.batch_verify(sigs, msgs, vk, params)
+    run()
     wall = time.perf_counter() - t0
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        be.batch_verify(sigs, msgs, vk, params)
+        run()
         profiled_wall = time.perf_counter() - t0
     spans, by_kernel = [], {}
     for ev in prof.events():
@@ -126,19 +185,28 @@ def profile(be, sigs, msgs, vk, params):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("verify", "show"), default="verify")
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_verify: no CUDA device available")
 
-    params, _, vk, sigs, msgs = entry.fixture(args.batch)
-    sigs, msgs, expect = entry.forge(params, sigs, msgs, every=8)
     be = TorchBackend()
-    if be.batch_verify(sigs, msgs, vk, params) != expect:
+    if args.path == "verify":
+        params, _, vk, sigs, msgs = entry.fixture(args.batch)
+        sigs, msgs, expect = entry.forge(params, sigs, msgs, every=8)
+        run = lambda: be.batch_verify(sigs, msgs, vk, params)
+        staged = lambda: stages(be, sigs, msgs, vk, params)
+    else:
+        params, _, vk, proofs, rmsgs, chals = entry.show_fixture(args.batch)
+        proofs, rmsgs, expect = entry.forge_shows(params, proofs, rmsgs, every=8)
+        run = lambda: be.batch_show_verify(proofs, vk, params, rmsgs, chals)
+        staged = lambda: show_stages(be, proofs, vk, params, rmsgs, chals)
+    if run() != expect:
         raise AssertionError("verdicts differ from expected")
     cuda_fp.LAUNCH_WIDTHS.clear()
-    bits, st = stages(be, sigs, msgs, vk, params)
+    bits, st = staged()
     if bits != expect:
         raise AssertionError("staged verdicts differ from expected")
     widths = dict(sorted(cuda_fp.LAUNCH_WIDTHS.items()))
@@ -147,12 +215,14 @@ def main(argv=None):
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     result = {
+        "path": args.path,
         "batch": args.batch,
         "window": be.window,
         "stages": st,
         "stages_total_s": sum(v["s"] for v in st.values()),
+        "stages_launches": sum(v["launches"] for v in st.values()),
         "launch_widths": widths,
-        "profile": profile(be, sigs, msgs, vk, params),
+        "profile": profile(run),
         "card": card,
     }
     text = json.dumps(result)
