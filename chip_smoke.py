@@ -24,7 +24,19 @@ Phases, one line each (plus the kernel table and the result line):
      config 3: 6 attributes, {2, 3, 4, 5} revealed), window 9, raw wire,
      one show in 8 forged four ways — the same checks on the cold call and
      three warm calls; warm wall time, show-verifies/s and the launches of
-     one warm batch by width.
+     one warm batch by width;
+  6. verify_combined: the main path's honest batch (before forging)
+     through ps.batch_verify(mode="batched") — 1,024 true bits from ONE
+     combined check and ONE final exponentiation a call, the same checks
+     as above; combined verifies/s beside the exact rate. Then the
+     bisection ladder on a batch with lanes 511 (tampered sigma_2) and
+     1023 (wrong message) forged: its bits, leaves, combined checks and
+     wall time;
+  7. show_combined: the same for ps.batch_show_verify(mode="batched") on
+     the show path's honest batch, and its ladder on a batch with one show
+     in 256 forged (lanes 255 and 767 fail the pairing check and must be
+     the ladder's leaves; 511, a corrupted response, and 1023, an identity
+     sigma'_1, fail through their own bits).
 
 Each path's first call runs with the kernel's counts set to 0 just before
 it and read just after; the kernel table's `launches` is their sum, and
@@ -35,6 +47,7 @@ Any failed check raises (non-zero exit). The last line is the JSON result
 Needs a CUDA card: without one it exits non-zero before printing results.
 """
 
+import collections
 import json
 import statistics
 import subprocess
@@ -44,7 +57,7 @@ import time
 import numpy as np
 import torch
 
-from coconut_tpu_torch import entry
+from coconut_tpu_torch import entry, ps
 from coconut_tpu_torch import bench_fp_mul as kb
 from coconut_tpu_torch.gpu import cuda_fp
 from coconut_tpu_torch.gpu.backend import TorchBackend
@@ -54,6 +67,8 @@ from coconut_tpu_torch.ops.fields import P
 LANES = kb.MAIN_WIDTHS[-1]  # one fp12_mul at B = 1024: 54 base products per lane
 BATCH = kb.BATCH
 FORGE_EVERY = 8
+LADDER_EVERY = 512  # verify ladder: lanes 511 and 1023 forged
+SHOW_LADDER_EVERY = 256  # show ladder: lanes 255, 511, 767 and 1023 forged
 
 
 def log(phase, **kv):
@@ -172,24 +187,30 @@ def drive(run, expect):
 
 
 def main_path_phase(card):
+    """Exact verify. Returns the kernel's launches, the backend, the honest
+    fixture (before forging) and verifies/s."""
     t0 = time.perf_counter()
-    params, _, vk, sigs, msgs = entry.fixture(BATCH)
+    honest = entry.fixture(BATCH)
+    params, _, vk, sigs, msgs = honest
     sigs, msgs, expect = entry.forge(params, sigs, msgs, every=FORGE_EVERY)
     fixture_s = time.perf_counter() - t0
 
     be = TorchBackend()  # cuda, window 9, raw wire
     res = drive(lambda: be.batch_verify(sigs, msgs, vk, params), expect)
+    rate = BATCH / res["warm_wall_s"]
     log(
         "main_path", batch=BATCH, attrs=entry.MSG_COUNT, window=be.window,
         raw_wire=be.raw_wire, forged=expect.count(False), fixture_s=fixture_s,
-        **res, verifies_per_s=BATCH / res["warm_wall_s"], card=card,
+        **res, verifies_per_s=rate, card=card,
     )
-    return res["launches_first_call"]
+    return res["launches_first_call"], be, honest, rate
 
 
 def show_path_phase(card):
+    """Exact show verify; returns as main_path_phase does."""
     t0 = time.perf_counter()
-    params, _, vk, proofs, rmsgs, challenges = entry.show_fixture(BATCH)
+    honest = entry.show_fixture(BATCH)
+    params, _, vk, proofs, rmsgs, challenges = honest
     proofs, rmsgs, expect = entry.forge_shows(params, proofs, rmsgs, every=FORGE_EVERY)
     fixture_s = time.perf_counter() - t0
 
@@ -197,12 +218,140 @@ def show_path_phase(card):
     res = drive(
         lambda: be.batch_show_verify(proofs, vk, params, rmsgs, challenges), expect
     )
+    rate = BATCH / res["warm_wall_s"]
     log(
         "show_path", batch=BATCH, attrs=entry.MSG_COUNT,
         revealed=list(entry.SHOW_REVEALED), window=be.window, raw_wire=be.raw_wire,
         forged=expect.count(False), forged_kinds=list(entry.SHOW_FORGERIES),
-        fixture_s=fixture_s, **res,
-        show_verifies_per_s=BATCH / res["warm_wall_s"], card=card,
+        fixture_s=fixture_s, **res, show_verifies_per_s=rate, card=card,
+    )
+    return res["launches_first_call"], be, honest, rate
+
+
+class _Recorder:
+    """Forwards to a backend and records each combined check: (first lane
+    of the sub-batch, its lanes, its pairing bool)."""
+
+    def __init__(self, be, lanes):
+        self._be = be
+        self._index = {id(x): i for i, x in enumerate(lanes)}
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self._be, name)
+
+    def batch_verify_combined(self, sigs, *args, **kw):
+        ok = self._be.batch_verify_combined(sigs, *args, **kw)
+        self.calls.append((self._index[id(sigs[0])], len(sigs), ok))
+        return ok
+
+    def batch_show_verify_combined(self, proofs, *args, **kw):
+        bits, ok = self._be.batch_show_verify_combined(proofs, *args, **kw)
+        self.calls.append((self._index[id(proofs[0])], len(proofs), ok))
+        return bits, ok
+
+
+def _combined_counts(be, res):
+    """drive()'s four calls must each have made one combined check and one
+    final exponentiation; `res` holds the counters' values before them."""
+    checks = be.combined_checks - res.pop("checks_before")
+    final_exps = be.final_exps - res.pop("final_exps_before")
+    if (checks, final_exps) != (4, 4):
+        raise AssertionError(
+            "4 calls made %d combined checks and %d final exponentiations"
+            % (checks, final_exps)
+        )
+    res["combined_checks_per_call"] = checks // 4
+    res["final_exps_per_call"] = final_exps // 4
+
+
+def _ladder(run, rec, expect, leaves):
+    """One bisection ladder: its bits must equal `expect` and its leaves
+    (single-lane checks that failed) must be `leaves`; no plain call."""
+    plain = cuda_fp.PLAIN_CALLS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bits = run()
+    wall = time.perf_counter() - t0
+    if bits != expect:
+        wrong = [i for i, (g, w) in enumerate(zip(bits, expect)) if g != w]
+        raise AssertionError("ladder verdicts differ from expected at lanes %s" % wrong)
+    got_leaves = sorted(lo for lo, n, ok in rec.calls if n == 1 and not ok)
+    if got_leaves != leaves or cuda_fp.PLAIN_CALLS != plain:
+        raise AssertionError(
+            "ladder leaves %s (expected %s), %d plain calls"
+            % (got_leaves, leaves, cuda_fp.PLAIN_CALLS - plain)
+        )
+    return {
+        "ladder_batch": len(expect),
+        "ladder_forged": [i for i, e in enumerate(expect) if not e],
+        "ladder_leaves": got_leaves,
+        "ladder_combined_checks": len(rec.calls),
+        "ladder_checks_by_width": dict(
+            sorted(collections.Counter(n for _, n, _ in rec.calls).items())
+        ),
+        "ladder_wall_s": wall,
+    }
+
+
+def verify_combined_phase(card, be, honest, exact_rate):
+    params, _, vk, sigs, msgs = honest
+    res = {"checks_before": be.combined_checks, "final_exps_before": be.final_exps}
+    res.update(drive(
+        lambda: ps.batch_verify(sigs, msgs, vk, params, be, mode="batched"),
+        [True] * BATCH,
+    ))
+    _combined_counts(be, res)
+    rate = BATCH / res["warm_wall_s"]
+
+    fsigs, fmsgs, expect = entry.forge(params, sigs, msgs, every=LADDER_EVERY)
+    rec = _Recorder(be, fsigs)
+    ladder = _ladder(
+        lambda: ps.batch_verify(fsigs, fmsgs, vk, params, rec, mode="batched"),
+        rec, expect, [i for i, e in enumerate(expect) if not e],
+    )
+    log(
+        "verify_combined", batch=BATCH, attrs=entry.MSG_COUNT, **res,
+        combined_verifies_per_s=rate, exact_verifies_per_s=exact_rate,
+        ratio_to_exact=rate / exact_rate, **ladder, card=card,
+    )
+    return res["launches_first_call"]
+
+
+def show_combined_phase(card, be, honest, exact_rate):
+    params, _, vk, proofs, rmsgs, challenges = honest
+    res = {"checks_before": be.combined_checks, "final_exps_before": be.final_exps}
+    res.update(drive(
+        lambda: ps.batch_show_verify(
+            proofs, vk, params, rmsgs, challenges, be, mode="batched"
+        ),
+        [True] * BATCH,
+    ))
+    _combined_counts(be, res)
+    rate = BATCH / res["warm_wall_s"]
+
+    fproofs, frmsgs, expect = entry.forge_shows(
+        params, proofs, rmsgs, every=SHOW_LADDER_EVERY
+    )
+    # the pairing check fails on the wrong revealed value and the doubled
+    # sigma'_2 only: the ladder's leaves
+    kinds = entry.SHOW_FORGERIES
+    pairing_lanes = [
+        i for n, i in enumerate(range(SHOW_LADDER_EVERY - 1, BATCH, SHOW_LADDER_EVERY))
+        if kinds[n % len(kinds)] in ("wrong_revealed_value", "doubled_sigma_prime_2")
+    ]
+    rec = _Recorder(be, fproofs)
+    ladder = _ladder(
+        lambda: ps.batch_show_verify(
+            fproofs, vk, params, frmsgs, challenges, rec, mode="batched"
+        ),
+        rec, expect, pairing_lanes,
+    )
+    log(
+        "show_combined", batch=BATCH, attrs=entry.MSG_COUNT,
+        revealed=list(entry.SHOW_REVEALED), **res,
+        combined_show_verifies_per_s=rate, exact_show_verifies_per_s=exact_rate,
+        ratio_to_exact=rate / exact_rate, **ladder, card=card,
     )
     return res["launches_first_call"]
 
@@ -226,7 +375,11 @@ def main():
         ptxas=kb.ptxas_report(cuda_fp.BUILD_LOG))
 
     kern = kernel_phase(dev)
-    by_path = {"verify": main_path_phase(card), "show": show_path_phase(card)}
+    by_path = {}
+    by_path["verify"], vbe, vhonest, vrate = main_path_phase(card)
+    by_path["show"], sbe, shonest, srate = show_path_phase(card)
+    by_path["verify_combined"] = verify_combined_phase(card, vbe, vhonest, vrate)
+    by_path["show_combined"] = show_combined_phase(card, sbe, shonest, srate)
     kern["launches"] = sum(by_path.values())
     kern["launches_by_path"] = by_path
     print(json.dumps({"kernels": [kern]}), flush=True)

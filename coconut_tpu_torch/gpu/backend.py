@@ -14,14 +14,19 @@ show-verify paths of `coconut_tpu/tpu/backend.py`:
   the hidden Y_tilde, the distinct MSM J^c, one affine compare with the
   commitment t) and J joined to the pairing accumulator.
 
+  fused_verify_combined / fused_show_verify_combined: the random-linear-
+  combination batch check. Each lane's pairing check is raised to a
+  128-bit combiner r_i, so the B checks fold into one product of B+1
+  Miller pairs with ONE shared final exponentiation; the protocol layer
+  (`coconut_tpu_torch.ps`) derives the r_i and bisects on a rejection.
+
 Every field product runs through gpu/fp.mul: the CUDA kernel on `cuda`,
 its plain PyTorch version on `cpu`. Results are bit-identical to the
 reference (tests/test_torch_verify.py holds them against JaxBackend and
 the spec).
 
 This slice covers the G1 signature assignment (the default). The G2
-assignment's generic pair-set loop is a later slice, and asks for it raise
-NotImplementedError.
+assignment is a later slice, and asks for it raise NotImplementedError.
 """
 
 from collections import OrderedDict
@@ -29,6 +34,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..batchverify import derive_combiners, show_transcript, verify_transcript
 from ..ops.curve import g1 as _g1, g2 as _g2
 from ..ops.fields import R
 from . import curve as cv
@@ -38,11 +44,17 @@ from . import tower as tw
 from .limbs import fr_digits_signed_np
 
 _G2_LATER = (
-    "the G2 signature assignment (generic pair-set Miller loop) is a later "
-    "slice of the port; this slice verifies ctx 'G1'"
+    "the G2 signature assignment is a later slice of the port; this slice "
+    "verifies ctx 'G1'"
 )
 
 _SIGNED_NWIN = 52  # signed 5-bit windows covering the 255-bit Fr
+
+# Bit length of the combiner exponents r_i of the combined checks. The
+# signed 5-bit recode of a value below 2^128 fills 26 windows plus one carry
+# window, so their MSMs run the last _R_NWIN of the 52 windows.
+_R_RAND_BITS = 128
+_R_NWIN = -(-_R_RAND_BITS // 5) + 1  # 27
 
 
 def resolve_device(device=None):
@@ -181,10 +193,25 @@ def fused_show_verify(
     if not sig_is_g1:
         raise NotImplementedError(_G2_LATER)
     jpt, commx, commy = _pts_f32((jpt, commx, commy))
-    fl = cv.FP2
+    schnorr_ok = _schnorr_check(
+        vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j,
+        commx, commy, comminf,
+    )
+    acc = _show_accumulator(acc_wtables, acc_mag, acc_sgn, jpt, jinf)
+    pair_ok = verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2)
+    return schnorr_ok & pair_ok
 
-    # Schnorr check; the two to_affine inversions stay separate, as in the
-    # reference
+
+def _schnorr_check(
+    vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j, commx, commy,
+    comminf,
+):
+    """The Schnorr half of the show programs, per lane: comb MSM over
+    [g_tilde, hidden Y_tilde] plus the distinct MSM J^c, compared in affine
+    form with the commitment t. Points are field elements already
+    (_pts_f32). Its to_affine inversion stays separate from the pairing
+    half's, as in the reference."""
+    fl = cv.FP2
     vc = cv.msm_shared_comb(fl, vc_wtables, resp_mag, resp_sgn)
     lift = lambda t: t[:, None]
     jterm = cv.msm_distinct_signed(
@@ -192,15 +219,138 @@ def fused_show_verify(
         jinf[:, None], cmag_j, csgn_j,
     )
     lx, ly, linf = cv.to_affine(fl, cv.jadd(fl, vc, jterm))
-    schnorr_ok = (
+    return (
         fl.eq(lx, commx) & fl.eq(ly, commy) & ~linf & ~comminf
     ) | (linf & comminf)
 
-    # pairing check
+
+def _show_accumulator(acc_wtables, acc_mag, acc_sgn, jpt, jinf):
+    """J * X_tilde * prod_rev Y_tilde^m: the comb MSM plus one add of J."""
+    fl = cv.FP2
     acc = cv.msm_shared_comb(fl, acc_wtables, acc_mag, acc_sgn)
-    acc = cv.jadd(fl, acc, cv.affine_to_jacobian(fl, jpt[0], jpt[1], jinf))
-    pair_ok = verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2)
-    return schnorr_ok & pair_ok
+    return cv.jadd(fl, acc, cv.affine_to_jacobian(fl, jpt[0], jpt[1], jinf))
+
+
+def _tree_fold_fp12(f, n):
+    """Product of an [n]-leading Fp12 element (n a power of two) by pairwise
+    halving, lo * hi, as the reference folds it. Returns [1]-leading."""
+    assert n & (n - 1) == 0
+    while n > 1:
+        half = n // 2
+        f = tw.fp12_mul(
+            tw.tree_map(lambda t: t[:half], f), tw.tree_map(lambda t: t[half:n], f)
+        )
+        n = half
+    return f
+
+
+def _combined_pairing(acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2):
+    """The RLC-combined pairing half shared by both combined programs:
+
+      prod_i e(r_i sigma_1_i, acc_i) * e(sum_i r_i (-sigma_2_i), g_tilde) == 1
+
+    B+1 Miller pairs on a [B+1, 1] pair set and ONE final exponentiation.
+    Points are field elements already (_pts_f32). Dead lanes (identity
+    sigma or accumulator) are masked to the identity before the sum and
+    out of the Miller product. Returns (the batch's bool [1], dead [B])."""
+    fl = cv.FP
+    B = inf1.shape[0]
+    ax, ay, ainf = cv.to_affine(cv.FP2, acc)
+    lift = lambda t: t[:, None]
+    # r_i sigma_1_i and r_i (-sigma_2_i): k = 1 distinct MSMs over the
+    # 27-window schedule
+    s1r = cv.msm_distinct_signed(fl, lift(s1[0]), lift(s1[1]), inf1[:, None], rmag, rsgn)
+    s2rn = cv.msm_distinct_signed(fl, lift(s2n[0]), lift(s2n[1]), inf2[:, None], rmag, rsgn)
+    dead = inf1 | inf2 | ainf
+    s2rn = tuple(
+        fl.select(dead, i_, c)
+        for i_, c in zip(cv.jinfinity(fl, (B,), dead.device), s2rn)
+    )
+    s2sum = cv.fold_points(fl, s2rn, B)
+    sx, sy, sinf = cv.to_affine(fl, s1r)
+    zx, zy, zinf = cv.to_affine(fl, s2sum)
+
+    # (r_i sigma_1_i, acc_i) for each lane, then (the sum, g_tilde) as one
+    # more lane
+    def cat(a, b):
+        return tw.tree_map(lambda x, y: torch.cat([x, y[None]]), a, b)
+
+    px, py = cat(sx, zx), cat(sy, zy)
+    qx, qy = cat(ax, gtx), cat(ay, gty)
+    valid = torch.cat([~dead & ~sinf, ~zinf[None]])
+    f = pr.multi_miller_loop(
+        tw.tree_map(lift, px), tw.tree_map(lift, py),
+        tw.tree_map(lift, qx), tw.tree_map(lift, qy), valid[:, None],
+    )  # [B+1]
+    head = tw.tree_map(lambda t: t[:B], f)
+    tail = tw.tree_map(lambda t: t[B:], f)
+    prod = tw.fp12_mul(_tree_fold_fp12(head, B), tail)
+    return tw.fp12_is_one(pr.final_exp(prod)), dead
+
+
+def fused_verify_combined(
+    sig_is_g1, wtables, mag, sgn, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2
+):
+    """Combined batch verify: ONE bool for the whole batch. With 128-bit
+    combiners r_i (digits rmag/rsgn [B, 1, 27], from _combiner_digits),
+
+      prod_i [e(sigma_1_i, acc_i) * e(-sigma_2_i, g_tilde)]^{r_i} == 1,
+
+    a forged credential passing with probability <= 2^-128. B must be a
+    power of two (the host pads). Any dead lane (identity sigma or
+    accumulator) fails the whole batch; the host rejects identity sigmas
+    before it gets here. Other operands as in fused_verify. Returns bool
+    [] on the device."""
+    if not sig_is_g1:
+        raise NotImplementedError(_G2_LATER)
+    s1, s2n, gtx, gty = _pts_f32((s1, s2n, gtx, gty))
+    acc = cv.msm_shared_comb(cv.FP2, wtables, mag, sgn)
+    ok, dead = _combined_pairing(acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2)
+    return ok[0] & ~dead.any()
+
+
+def fused_show_verify_combined(
+    sig_is_g1, vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j,
+    commx, commy, comminf, acc_wtables, acc_mag, acc_sgn, s1, s2n, rmag,
+    rsgn, gtx, gty, inf1, inf2,
+):
+    """Combined batch show verify: per-lane Schnorr bits plus ONE pairing
+    bool for the whole batch. The Schnorr half is fused_show_verify's; the
+    B pairing checks fold under the combiners r_i as in
+    fused_verify_combined. Dead lanes (identity sigma' or accumulator) are
+    masked out of the fold and fail only their own bit. Returns (bits [B]
+    = Schnorr ok and not dead, pairing bool []); a lane's verdict is
+    bits_i & pairing."""
+    if not sig_is_g1:
+        raise NotImplementedError(_G2_LATER)
+    jpt, commx, commy = _pts_f32((jpt, commx, commy))
+    s1, s2n, gtx, gty = _pts_f32((s1, s2n, gtx, gty))
+    schnorr_ok = _schnorr_check(
+        vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j,
+        commx, commy, comminf,
+    )
+    acc = _show_accumulator(acc_wtables, acc_mag, acc_sgn, jpt, jinf)
+    pair_ok, dead = _combined_pairing(acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2)
+    return schnorr_ok & ~dead, pair_ok[0]
+
+
+def _combiner_digits(rs, device):
+    """Combiner exponents -> their signed 5-bit digits on the combined
+    programs' short schedule, (mag, sgn) [B, 1, _R_NWIN]. Refuses an
+    exponent of _R_RAND_BITS bits or more: the schedule would drop its top
+    windows."""
+    for r in rs:
+        if not 0 <= r < (1 << _R_RAND_BITS):
+            raise ValueError("combiner exponent exceeds %d bits" % _R_RAND_BITS)
+    rmag, rsgn = _signed_digits([[r] for r in rs], device)
+    # only the last _R_NWIN msb-first windows can be nonzero
+    return rmag[:, :, _SIGNED_NWIN - _R_NWIN :], rsgn[:, :, _SIGNED_NWIN - _R_NWIN :]
+
+
+def _pow2_lanes(n):
+    """The combined programs' lane count: n padded to a power of two, at
+    least 2."""
+    return 1 << max(1, (n - 1).bit_length())
 
 
 class TorchBackend:
@@ -216,7 +366,11 @@ class TorchBackend:
     plain PyTorch multiply. comb_window: signed comb window, 9 on cuda
     (29 windows, 257-entry tables), 6 on cpu (43 / 33). raw_wire: ship
     points as 48 raw bytes per Fp and enter the Montgomery domain on the
-    device (default on cuda) instead of as int16 balanced limbs."""
+    device (default on cuda) instead of as int16 balanced limbs.
+
+    Counters: `combined_checks` (calls of the combined methods) and
+    `final_exps` (final-exponentiation lanes: B a batch on the exact
+    paths, one a combined check)."""
 
     name = "torch"
 
@@ -235,6 +389,8 @@ class TorchBackend:
         self._static_cache = _LRU(self._STATIC_CACHE_MAX)
         self.encode_cache_hits = 0
         self.encode_cache_misses = 0
+        self.combined_checks = 0
+        self.final_exps = 0
 
     # -- point encoding ------------------------------------------------------
 
@@ -342,7 +498,9 @@ class TorchBackend:
         if not sigs:
             return lambda: []
         operands = self.encode_verify_batch(sigs, messages_list, vk, params)
-        return _finalizer(fused_verify(params.ctx.name == "G1", *operands))
+        bits = fused_verify(params.ctx.name == "G1", *operands)
+        self.final_exps += len(sigs)
+        return _finalizer(bits)
 
     def batch_verify(self, sigs, messages_list, vk, params):
         """Fully fused batched PS verification: one bool per credential."""
@@ -413,7 +571,9 @@ class TorchBackend:
         operands = self.encode_show_verify_batch(
             proofs, vk, params, revealed_msgs_list, challenges
         )
-        return _finalizer(fused_show_verify(params.ctx.name == "G1", *operands))
+        bits = fused_show_verify(params.ctx.name == "G1", *operands)
+        self.final_exps += len(proofs)
+        return _finalizer(bits)
 
     def batch_show_verify(self, proofs, vk, params, revealed_msgs_list, challenges):
         """Batched selective-disclosure proof verification (BASELINE config
@@ -423,6 +583,128 @@ class TorchBackend:
         return self.batch_show_verify_async(
             proofs, vk, params, revealed_msgs_list, challenges
         )()
+
+    # -- combined (RLC) checks ----------------------------------------------
+
+    def _combiners(self, rs, n, transcript):
+        """`rs` as given (its count checked), or n combiners derived from
+        the batch transcript (built only then)."""
+        if rs is None:
+            return derive_combiners(transcript(), n)
+        if len(rs) != n:
+            raise ValueError(
+                "combiner count mismatch: %d exponents, %d lanes" % (len(rs), n)
+            )
+        return list(rs)
+
+    def _combined_dispatch(self, sigs, messages_list, vk, params, rs, epoch):
+        """Encode and enqueue the combined verify; returns the device bool.
+        Derives the combiners from the batch transcript when `rs` is None,
+        then pads to a power of two with clones of lane 0, each reusing r_0
+        (lane 0's total exponent r_0 (1 + pad) stays nonzero mod R).
+        Callers have rejected empty batches and identity sigmas."""
+        B = len(sigs)
+        rs = self._combiners(
+            rs, B,
+            lambda: verify_transcript(sigs, messages_list, vk, params, epoch=epoch),
+        )
+        pad = _pow2_lanes(B) - B
+        sigs = list(sigs) + [sigs[0]] * pad
+        messages_list = list(messages_list) + [messages_list[0]] * pad
+        rs = rs + [rs[0]] * pad
+        wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2 = self.encode_verify_batch(
+            sigs, messages_list, vk, params
+        )
+        rmag, rsgn = _combiner_digits(rs, self.device)
+        ok = fused_verify_combined(
+            params.ctx.name == "G1", wtables, mag, sgn, s1, s2n, rmag, rsgn,
+            gtx, gty, inf1, inf2,
+        )
+        self.final_exps += 1
+        return ok
+
+    def batch_verify_combined_async(
+        self, sigs, messages_list, vk, params, rs=None, epoch=None
+    ):
+        """Enqueue the combined verify of the whole batch; returns a
+        zero-arg finalizer that waits for its ONE bool. An empty batch is
+        True (the empty product), a batch holding an identity sigma False
+        (rejected on the host, before any transcript)."""
+        self.combined_checks += 1
+        if not sigs:
+            return lambda: True
+        if any(s.sigma_1 is None or s.sigma_2 is None for s in sigs):
+            return lambda: False
+        ok = self._combined_dispatch(sigs, messages_list, vk, params, rs, epoch)
+        return lambda: bool(ok)
+
+    def batch_verify_combined(
+        self, sigs, messages_list, vk, params, rs=None, epoch=None
+    ):
+        """ONE bool for the whole batch by small-exponents combination
+        (fused_verify_combined): B+1 Miller pairs and one final
+        exponentiation. A forged credential passes with probability <=
+        2^-lambda over the combiners, which `rs=None` derives from the
+        batch transcript (batchverify.derive_combiners, the JAX package's
+        draw); pass `rs` to pin them. `epoch` joins the transcript's domain
+        separation."""
+        return self.batch_verify_combined_async(
+            sigs, messages_list, vk, params, rs=rs, epoch=epoch
+        )()
+
+    def batch_show_verify_combined(
+        self, proofs, vk, params, revealed_msgs_list, challenges, rs=None,
+        epoch=None,
+    ):
+        """Combined show verify -> (per-lane Schnorr bits, ONE batch
+        pairing bool); a lane's verdict is bits[i] & pairing. The combiners
+        come as in batch_verify_combined (from show_transcript; a dead
+        proof is absorbed with its identity sigma' as zero bytes). Padding
+        clones lane 0 with its challenge and combiner. All proofs share
+        proofs[0]'s revealed-index set."""
+        self.combined_checks += 1
+        B = len(proofs)
+        if B == 0:
+            return [], True
+        rs = self._combiners(
+            rs, B,
+            lambda: show_transcript(
+                proofs, vk, params, revealed_msgs_list, challenges, epoch=epoch
+            ),
+        )
+        pad = _pow2_lanes(B) - B
+        proofs = list(proofs) + [proofs[0]] * pad
+        revealed_msgs_list = list(revealed_msgs_list) + [revealed_msgs_list[0]] * pad
+        challenges = list(challenges) + [challenges[0]] * pad
+        rs = rs + [rs[0]] * pad
+        ops = self.encode_show_verify_batch(
+            proofs, vk, params, revealed_msgs_list, challenges
+        )
+        rmag, rsgn = _combiner_digits(rs, self.device)
+        bits, pair_ok = fused_show_verify_combined(
+            # ops[:15] ends with s1, s2n; ops[15:] is gtx, gty, inf1, inf2
+            params.ctx.name == "G1", *ops[:15], rmag, rsgn, *ops[15:]
+        )
+        self.final_exps += 1
+        return [bool(b) for b in bits.cpu().tolist()[:B]], bool(pair_ok)
+
+    # -- generic pairing product --------------------------------------------
+
+    def pairing_product_is_one(self, pairs_batch):
+        """[[(P in G1 or None, Q in G2 or None), ...] per row] -> one bool
+        per row: prod e(P, Q) == 1. Rows must have one length; a None point
+        makes its pair the identity factor."""
+        B = len(pairs_batch)
+        n = len(pairs_batch[0])
+        if any(len(row) != n for row in pairs_batch):
+            raise ValueError("ragged pairing batch")
+        (px, py), pinf = self._encode_g1_points([p for row in pairs_batch for p, _ in row])
+        (qx, qy), qinf = self._encode_g2_points([q for row in pairs_batch for _, q in row])
+        reshape = lambda t: t.reshape((B, n) + t.shape[1:])
+        px, py, qx, qy = _pts_f32(tw.tree_map(reshape, (px, py, qx, qy)))
+        valid = ~(pinf | qinf).reshape(B, n)
+        self.final_exps += B
+        return _finalizer(pr.pairing_product_is_one(px, py, qx, qy, valid))()
 
 
 def _finalizer(bits):

@@ -211,10 +211,20 @@ def _plain_consts(device):
 
 def _school(x, y):
     """c_k = sum_{i+j=k} x_i y_j over [N, 52] rows: the 103 coefficients of
-    the limb product, one shifted multiply-add per limb of x."""
-    t = x.new_zeros((x.shape[0], _OUT2))
-    for i in range(NLIMBS):
-        t[:, i : i + NLIMBS] += x[:, i : i + 1] * y
+    the limb product. The limbs of x go in 4 blocks of 13, one shifted
+    multiply-add per limb of a block for all 4 blocks at once, then the
+    blocks' partial products are added at their offsets. Every term and
+    every sum is an integer far below 2^53, so float64 adds them exactly
+    in any order."""
+    n, blk = x.shape[0], NLIMBS // 4
+    xb = x.reshape(n, 4, blk)
+    yb = y[:, None, :]
+    part = x.new_zeros((n, 4, NLIMBS + blk - 1))
+    for i in range(blk):
+        part[:, :, i : i + NLIMBS] += xb[:, :, i : i + 1] * yb
+    t = x.new_zeros((n, _OUT2))
+    for j in range(4):
+        t[:, blk * j : blk * (j + 1) + NLIMBS - 1] += part[:, j]
     return t
 
 

@@ -1,12 +1,12 @@
-"""Batched optimal-ate pairing pieces of the verify slice: the two-pair
-Miller loop with a shared twist point and the final exponentiation — the
-port of the G1-assignment half of `coconut_tpu/tpu/pairing.py`.
+"""Batched optimal-ate pairing — the port of `coconut_tpu/tpu/pairing.py`:
+the generic pair-set Miller loop (`multi_miller_loop`, run by the combined
+verify programs on a [B+1, 1] pair set, and `pairing_product_is_one`),
+the two-pair Miller loop with a shared twist point of the exact verify
+programs, and the final exponentiation.
 
 Same homogeneous twist coordinates, line coefficients and x-power chain as
 the spec (`ops.pairing.miller_loop_projective` / `final_exp_chain`), so
-post-final-exp GT values decode bit-identical to it. The generic pair-set
-loop (`multi_miller_loop`, `pairing_product_is_one`) serves the G2
-signature assignment and comes with that later slice.
+post-final-exp GT values decode bit-identical to it.
 
 `lax.scan`s of the reference become Python loops over the static bit
 schedule of |BLS_X|.
@@ -83,6 +83,46 @@ def _eval_line(line, px, py):
     """(lA, lB, lC) -> (lA, lB*px, lC*py): the sparse element for mul_line."""
     lA, lB, lC = line
     return (lA, tw.fp2_mul_fp(lB, px), tw.fp2_mul_fp(lC, py))
+
+
+def multi_miller_loop(px, py, qx, qy, valid):
+    """Product of Miller loops over the trailing "pairs" axis of the leading
+    dims: px, py Fp limb tensors [..., npairs]; qx, qy affine twist points
+    as Fp2 pairs of the same leading dims; valid bool [..., npairs].
+    Returns an Fp12 element with leading dims [...] (the pairs folded by
+    fp12_mul in pair order).
+
+    Pad-lane contract (as the reference's): a lane with valid=False
+    contributes exactly the GT identity, whatever its coordinates, so an
+    all-pad pair set folds to one and pad lanes change no product,
+    wherever they sit. As in the reference's code, the identity is
+    selected once after the loop (no per-line masks)."""
+    shape, dev = valid.shape, valid.device
+    T = (qx, qy, tw.fp2_ones(shape, dev))
+    f = tw.fp12_ones(shape, dev)
+
+    def dbl(f, T):
+        T, line = _proj_double_step(T)
+        return tw.mul_line(tw.fp12_sq(f), _eval_line(line, px, py)), T
+
+    for nz in _SEG_ZEROS:
+        for _ in range(nz):
+            f, T = dbl(f, T)
+        f, T = dbl(f, T)
+        T, la = _proj_add_step(T, (qx, qy))
+        f = tw.mul_line(f, _eval_line(la, px, py))
+    for _ in range(_TRAILING):
+        f, T = dbl(f, T)
+    f = tw.fp12_conj(f)  # x < 0
+    f = tw.fp12_select(valid, f, tw.fp12_ones(shape, dev))
+    out = _index_fp12(f, 0)
+    for i in range(1, shape[-1]):
+        out = tw.fp12_mul(out, _index_fp12(f, i))
+    return out
+
+
+def _index_fp12(f, i):
+    return tw.tree_map(lambda t: t[..., i, :], f)
 
 
 def _mask_line(line, valid):
@@ -165,3 +205,10 @@ def final_exp(f):
         tw.fp12_conj(t2),
     )
     return tw.fp12_mul(t3, tw.fp12_mul(tw.fp12_cyclo_sq(m), m))
+
+
+def pairing_product_is_one(px, py, qx, qy, valid):
+    """[..., npairs] pair sets -> bool [...]: prod e(P_i, Q_i) == 1. Pad
+    pairs (valid=False) are identity factors, so an all-pad set answers
+    True."""
+    return tw.fp12_is_one(final_exp(multi_miller_loop(px, py, qx, qy, valid)))

@@ -452,6 +452,11 @@ def fp12_ones(shape, device):
     return (fp6_ones(shape, device), fp6_zeros(shape, device))
 
 
+def fp12_select(mask, a, b):
+    """mask [...] bool -> a where true else b, component by component."""
+    return tree_map(lambda x, y: fp.select(mask, x, y), a, b)
+
+
 def fp12_is_one(a):
     """Exact componentwise test against the Montgomery one, all 12
     compress-muls stacked into one multiply."""

@@ -1,11 +1,14 @@
 """Where the time of one batched verify or show verify goes, on the GPU.
 
-    python3 -m coconut_tpu_torch.profile_verify [--path verify|show]
+    python3 -m coconut_tpu_torch.profile_verify
+        [--path verify|show|verify_combined|show_combined]
         [--batch 1024] [--out FILE]
 
 Builds the path's entry fixture (B credentials, 6 attributes, one lane in 8
-forged; for `show`, shows revealing attributes {2, 3, 4, 5}), warms
-TorchBackend up once, then measures a warm batch three ways:
+forged; for `show`, shows revealing attributes {2, 3, 4, 5}; the combined
+paths take the honest fixture, all lanes true, through ps.batch_verify /
+ps.batch_show_verify in mode "batched"), warms TorchBackend up once, then
+measures a warm batch three ways:
 
   stages    host wall time (synchronized) and kernel launches of each stage
             of the path: for `verify` host encode, comb MSM, affine
@@ -13,8 +16,14 @@ TorchBackend up once, then measures a warm batch three ways:
             test; for `show` host encode, the Schnorr comb MSM, the
             distinct MSM J^c, the Schnorr affine normalization and compare,
             the pairing comb MSM + the add of J, then affine, Miller, final
-            exponentiation and GT test as for `verify`; and the field
-            kernel's launches of that batch by width (lanes);
+            exponentiation and GT test as for `verify`; for the combined
+            paths the same front (encode with the combiners' transcript and
+            digits, comb MSM, for show the Schnorr stages), then the
+            accumulator's affine, the two r-MSMs over G1, the fold of the
+            r (-sigma_2) points, the two G1 affines, the Miller loop over
+            B+1 pairs, the tree fold of the Fp12 values, ONE final
+            exponentiation and the test; and the field kernel's launches of
+            that batch by width (lanes);
   profile   torch.profiler over one warm batch: device time by kernel name,
             the field kernel's device time and launches, total device-busy
             time, and the device's idle share of the wall time;
@@ -31,12 +40,13 @@ import time
 
 import torch
 
-from . import entry
+from . import entry, ps
+from .batchverify import derive_combiners, show_transcript, verify_transcript
 from .gpu import cuda_fp
 from .gpu import curve as cv
 from .gpu import pairing as pr
 from .gpu import tower as tw
-from .gpu.backend import TorchBackend, _pts_f32
+from .gpu.backend import TorchBackend, _combiner_digits, _pts_f32, _tree_fold_fp12
 
 
 def _stage(fn):
@@ -82,6 +92,70 @@ def stages(be, sigs, msgs, vk, params):
     return _tail_stages(out, acc, s1, s2n, gtx, gty, inf1, inf2), out
 
 
+def _combined_tail_stages(out, acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2):
+    """The combined pairing half's stages (gpu.backend._combined_pairing),
+    one after another, into `out`. Returns (the batch's pairing bool, dead
+    lanes [B])."""
+    fl = cv.FP
+    B = inf1.shape[0]
+    lift = lambda t: t[:, None]
+
+    def affine():
+        pts = _pts_f32((s1, s2n, gtx, gty))
+        return pts, cv.to_affine(cv.FP2, acc)
+
+    ((s1, s2n, gtx, gty), (ax, ay, ainf)), out["acc_affine"] = _stage(affine)
+    (s1r, s2rn), out["r_msms"] = _stage(lambda: tuple(
+        cv.msm_distinct_signed(fl, lift(p[0]), lift(p[1]), inf[:, None], rmag, rsgn)
+        for p, inf in ((s1, inf1), (s2n, inf2))
+    ))
+    dead = inf1 | inf2 | ainf
+
+    def fold():
+        ident = cv.jinfinity(fl, (B,), dead.device)
+        return cv.fold_points(
+            fl, tuple(fl.select(dead, i_, c) for i_, c in zip(ident, s2rn)), B
+        )
+
+    s2sum, out["fold"] = _stage(fold)
+    ((sx, sy, sinf), (zx, zy, zinf)), out["g1_affine"] = _stage(
+        lambda: (cv.to_affine(fl, s1r), cv.to_affine(fl, s2sum))
+    )
+
+    def miller():
+        cat = lambda a, b: tw.tree_map(lambda x, y: torch.cat([x, y[None]]), a, b)
+        valid = torch.cat([~dead & ~sinf, ~zinf[None]])
+        return pr.multi_miller_loop(
+            *(tw.tree_map(lift, t) for t in (cat(sx, zx), cat(sy, zy), cat(ax, gtx), cat(ay, gty))),
+            valid[:, None],
+        )
+
+    f, out["miller"] = _stage(miller)
+    prod, out["tree_fold"] = _stage(lambda: tw.fp12_mul(
+        _tree_fold_fp12(tw.tree_map(lambda t: t[:B], f), B),
+        tw.tree_map(lambda t: t[B:], f),
+    ))
+    fe, out["final_exp"] = _stage(lambda: pr.final_exp(prod))
+    ok, out["is_one"] = _stage(lambda: bool(tw.fp12_is_one(fe)[0]))
+    return ok, dead
+
+
+def combined_stages(be, sigs, msgs, vk, params):
+    """The combined verify's stages (fused_verify_combined), B a power of
+    two. The encode stage derives the combiners from the transcript."""
+    out = {}
+
+    def encode():
+        rs = derive_combiners(verify_transcript(sigs, msgs, vk, params), len(sigs))
+        return be.encode_verify_batch(sigs, msgs, vk, params), _combiner_digits(rs, be.device)
+
+    (ops, (rmag, rsgn)), out["encode"] = _stage(encode)
+    wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2 = ops
+    acc, out["comb_msm"] = _stage(lambda: cv.msm_shared_comb(cv.FP2, wtables, mag, sgn))
+    ok, dead = _combined_tail_stages(out, acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2)
+    return [ok and not bool(dead.any())] * len(sigs), out
+
+
 def show_stages(be, proofs, vk, params, rmsgs, challenges):
     """The fused show verify's stages, run one after another as
     fused_show_verify runs them, each timed to a device synchronize. The
@@ -91,8 +165,38 @@ def show_stages(be, proofs, vk, params, rmsgs, challenges):
     ops, out["encode"] = _stage(
         lambda: be.encode_show_verify_batch(proofs, vk, params, rmsgs, challenges)
     )
+    schnorr_ok, acc = _schnorr_stages(out, ops)
+    s1, s2n, gtx, gty, inf1, inf2 = ops[13:]
+    bits = _tail_stages(out, acc, s1, s2n, gtx, gty, inf1, inf2, ok=schnorr_ok)
+    return bits, out
+
+
+def show_combined_stages(be, proofs, vk, params, rmsgs, challenges):
+    """The combined show verify's stages (fused_show_verify_combined), B a
+    power of two: the Schnorr stages of `show`, then the combined pairing
+    half."""
+    out = {}
+
+    def encode():
+        rs = derive_combiners(
+            show_transcript(proofs, vk, params, rmsgs, challenges), len(proofs)
+        )
+        ops = be.encode_show_verify_batch(proofs, vk, params, rmsgs, challenges)
+        return ops, _combiner_digits(rs, be.device)
+
+    (ops, (rmag, rsgn)), out["encode"] = _stage(encode)
+    schnorr_ok, acc = _schnorr_stages(out, ops)
+    s1, s2n, gtx, gty, inf1, inf2 = ops[13:]
+    ok, dead = _combined_tail_stages(out, acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2)
+    bits = (schnorr_ok & ~dead).cpu().tolist()
+    return [bool(b) and ok for b in bits], out
+
+
+def _schnorr_stages(out, ops):
+    """The show programs' Schnorr stages and the pairing accumulator, into
+    `out`. Returns (Schnorr bits [B], the accumulator)."""
     (vc_wt, rmag, rsgn, jpt, jinf, cmag, csgn, commx, commy, comminf,
-     acc_wt, amag, asgn, s1, s2n, gtx, gty, inf1, inf2) = ops
+     acc_wt, amag, asgn) = ops[:13]
     fl = cv.FP2
 
     def schnorr_comb():
@@ -121,8 +225,7 @@ def show_stages(be, proofs, vk, params, rmsgs, challenges):
             cv.affine_to_jacobian(fl, jpt[0], jpt[1], jinf),
         )
     )
-    bits = _tail_stages(out, acc, s1, s2n, gtx, gty, inf1, inf2, ok=schnorr_ok)
-    return bits, out
+    return schnorr_ok, acc
 
 
 def _union_us(spans):
@@ -185,7 +288,10 @@ def profile(run):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("verify", "show"), default="verify")
+    ap.add_argument(
+        "--path", choices=("verify", "show", "verify_combined", "show_combined"),
+        default="verify",
+    )
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -193,16 +299,31 @@ def main(argv=None):
         raise SystemExit("profile_verify: no CUDA device available")
 
     be = TorchBackend()
-    if args.path == "verify":
+    combined = args.path.endswith("_combined")
+    if combined and args.batch & (args.batch - 1):
+        raise SystemExit("profile_verify: the combined paths take a power-of-two batch")
+    if args.path.startswith("verify"):
         params, _, vk, sigs, msgs = entry.fixture(args.batch)
-        sigs, msgs, expect = entry.forge(params, sigs, msgs, every=8)
-        run = lambda: be.batch_verify(sigs, msgs, vk, params)
-        staged = lambda: stages(be, sigs, msgs, vk, params)
+        if combined:
+            expect = [True] * args.batch
+            run = lambda: ps.batch_verify(sigs, msgs, vk, params, be, mode="batched")
+            staged = lambda: combined_stages(be, sigs, msgs, vk, params)
+        else:
+            sigs, msgs, expect = entry.forge(params, sigs, msgs, every=8)
+            run = lambda: be.batch_verify(sigs, msgs, vk, params)
+            staged = lambda: stages(be, sigs, msgs, vk, params)
     else:
         params, _, vk, proofs, rmsgs, chals = entry.show_fixture(args.batch)
-        proofs, rmsgs, expect = entry.forge_shows(params, proofs, rmsgs, every=8)
-        run = lambda: be.batch_show_verify(proofs, vk, params, rmsgs, chals)
-        staged = lambda: show_stages(be, proofs, vk, params, rmsgs, chals)
+        if combined:
+            expect = [True] * args.batch
+            run = lambda: ps.batch_show_verify(
+                proofs, vk, params, rmsgs, chals, be, mode="batched"
+            )
+            staged = lambda: show_combined_stages(be, proofs, vk, params, rmsgs, chals)
+        else:
+            proofs, rmsgs, expect = entry.forge_shows(params, proofs, rmsgs, every=8)
+            run = lambda: be.batch_show_verify(proofs, vk, params, rmsgs, chals)
+            staged = lambda: show_stages(be, proofs, vk, params, rmsgs, chals)
     if run() != expect:
         raise AssertionError("verdicts differ from expected")
     cuda_fp.LAUNCH_WIDTHS.clear()

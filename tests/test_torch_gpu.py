@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA Montgomery kernel against its plain
-PyTorch version on the GPU, the wrapper's checks, and the verify and
-show-verify paths on `cuda` against the same paths on the CPU.
+PyTorch version on the GPU, the wrapper's checks, and the verify,
+show-verify and combined paths on `cuda` against the same paths on the
+CPU.
 
 Marked `gpu`; each test skips where no CUDA card is present. On a machine
 with one: `python -m pytest tests/test_torch_gpu.py -q`. Tolerance: exact
@@ -124,3 +125,32 @@ def test_batch_show_verify_on_cuda_matches_cpu_and_expected(cuda):
     assert got == expect
     cpu = TorchBackend(device="cpu").batch_show_verify(proofs, vk, params, rmsgs, challenges)
     assert cpu == got
+
+
+def test_combined_checks_on_cuda_match_cpu(cuda):
+    """B = 64: the combined verify of an honest batch and of one with lanes
+    31 and 63 forged, and the combined show verify of a batch with one show
+    in 16 forged (each kind of forgery once), on the card at window 9 and
+    raw wire give the CPU's results at window 6 and int16 wire."""
+    params, _, vk, sigs, msgs = entry.fixture(64)
+    fsigs, fmsgs, _ = entry.forge(params, sigs, msgs, every=32)
+    _, _, _, proofs, rmsgs, challenges = entry.show_fixture(64)
+    proofs, rmsgs, _ = entry.forge_shows(params, proofs, rmsgs, every=16)
+    be, plain = TorchBackend(), cuda_fp.PLAIN_CALLS
+    assert be.batch_verify_combined(sigs, msgs, vk, params) is True
+    got = (
+        be.batch_verify_combined(fsigs, fmsgs, vk, params),
+        be.batch_show_verify_combined(proofs, vk, params, rmsgs, challenges),
+    )
+    assert cuda_fp.PLAIN_CALLS == plain
+    assert (be.combined_checks, be.final_exps) == (3, 3)
+    bits, pair_ok = got[1]
+    # 15 and 47 fail the pairing check only; 31 (corrupted response) and
+    # 63 (identity sigma'_1, a dead lane) fail their own bits
+    assert got[0] is False and pair_ok is False
+    assert [i for i, b in enumerate(bits) if not b] == [31, 63]
+    cpu = TorchBackend(device="cpu")
+    assert got == (
+        cpu.batch_verify_combined(fsigs, fmsgs, vk, params),
+        cpu.batch_show_verify_combined(proofs, vk, params, rmsgs, challenges),
+    )
