@@ -36,11 +36,25 @@ Phases, one line each (plus the kernel table and the result line):
      the show path's honest batch, and its ladder on a batch with one show
      in 256 forged (lanes 255 and 767 fail the pairing check and must be
      the ladder's leaves; 511, a corrupted response, and 1023, an identity
-     sigma'_1, fail through their own bits).
+     sigma'_1, fail through their own bits);
+  8. grouped: TorchBackend().batch_verify_grouped (the attribute-grouped
+     one-bool check, q+2 Miller pairs) on the main path's honest batch —
+     True from ONE final exponentiation a call (the backend's counters),
+     cold and three warm calls; grouped verifies/s beside the exact rate
+     of phase 4 (window 9); then False on a batch with lane 511's sigma_2
+     doubled and on one with lane 1023's message bumped, and False on an
+     identity sigma_1 with no device work;
+  9. g2_verify: B = 1024, 6 attributes under the G2 assignment
+     (signatures in G2, the verkey and g_tilde in G1): exact verify with
+     one lane in 8 forged (every bit the expected verdict), the combined
+     check of ps.batch_verify(mode="batched") on the honest batch (1,024
+     true bits, one combined check a call) and the grouped check (True on
+     the honest batch, False with lane 511's sigma_2 doubled), each cold
+     and warm with its rate, beside the G1 rates of this process.
 
 Each path's first call runs with the kernel's counts set to 0 just before
 it and read just after; the kernel table's `launches` is their sum, and
-`launches_by_path` holds each.
+`launches_by_path` holds each (g2_verify: the sum of its three paths').
 
 Any failed check raises (non-zero exit). The last line is the JSON result
 {"ok": true, "device": {...}}; the line before it the kernel table.
@@ -62,7 +76,7 @@ from coconut_tpu_torch import bench_fp_mul as kb
 from coconut_tpu_torch.gpu import cuda_fp
 from coconut_tpu_torch.gpu.backend import TorchBackend
 from coconut_tpu_torch.gpu.limbs import MONT_R
-from coconut_tpu_torch.ops.fields import P
+from coconut_tpu_torch.ops.fields import P, R
 
 LANES = kb.MAIN_WIDTHS[-1]  # one fp12_mul at B = 1024: 54 base products per lane
 BATCH = kb.BATCH
@@ -251,17 +265,18 @@ class _Recorder:
         return bits, ok
 
 
-def _combined_counts(be, res):
-    """drive()'s four calls must each have made one combined check and one
-    final exponentiation; `res` holds the counters' values before them."""
-    checks = be.combined_checks - res.pop("checks_before")
+def _one_check_per_call(be, res, counter="combined_checks"):
+    """drive()'s four calls must each have made one check (`counter`:
+    combined or grouped) and one final exponentiation; `res` holds the
+    counters' values before them."""
+    checks = getattr(be, counter) - res.pop("checks_before")
     final_exps = be.final_exps - res.pop("final_exps_before")
     if (checks, final_exps) != (4, 4):
         raise AssertionError(
-            "4 calls made %d combined checks and %d final exponentiations"
-            % (checks, final_exps)
+            "4 calls made %d %s and %d final exponentiations"
+            % (checks, counter, final_exps)
         )
-    res["combined_checks_per_call"] = checks // 4
+    res[counter + "_per_call"] = checks // 4
     res["final_exps_per_call"] = final_exps // 4
 
 
@@ -301,7 +316,7 @@ def verify_combined_phase(card, be, honest, exact_rate):
         lambda: ps.batch_verify(sigs, msgs, vk, params, be, mode="batched"),
         [True] * BATCH,
     ))
-    _combined_counts(be, res)
+    _one_check_per_call(be, res)
     rate = BATCH / res["warm_wall_s"]
 
     fsigs, fmsgs, expect = entry.forge(params, sigs, msgs, every=LADDER_EVERY)
@@ -315,7 +330,7 @@ def verify_combined_phase(card, be, honest, exact_rate):
         combined_verifies_per_s=rate, exact_verifies_per_s=exact_rate,
         ratio_to_exact=rate / exact_rate, **ladder, card=card,
     )
-    return res["launches_first_call"]
+    return res["launches_first_call"], rate
 
 
 def show_combined_phase(card, be, honest, exact_rate):
@@ -327,7 +342,7 @@ def show_combined_phase(card, be, honest, exact_rate):
         ),
         [True] * BATCH,
     ))
-    _combined_counts(be, res)
+    _one_check_per_call(be, res)
     rate = BATCH / res["warm_wall_s"]
 
     fproofs, frmsgs, expect = entry.forge_shows(
@@ -356,6 +371,94 @@ def show_combined_phase(card, be, honest, exact_rate):
     return res["launches_first_call"]
 
 
+def _forged_sigma_2(params, sigs, lane):
+    sigs = list(sigs)
+    s = sigs[lane]
+    sigs[lane] = type(s)(s.sigma_1, params.ctx.sig.mul(s.sigma_2, 2))
+    return sigs
+
+
+def _quiet(run, want, what):
+    """One call that must return `want` and launch no plain version."""
+    plain = cuda_fp.PLAIN_CALLS
+    got = run()
+    if got != want or cuda_fp.PLAIN_CALLS != plain:
+        raise AssertionError(
+            "%s: got %r (expected %r), %d plain calls"
+            % (what, got, want, cuda_fp.PLAIN_CALLS - plain)
+        )
+
+
+def grouped_phase(card, be, honest, exact_rate):
+    """The grouped check on the main path's honest batch and on batches
+    forged one way each."""
+    params, _, vk, sigs, msgs = honest
+    res = {"checks_before": be.grouped_checks, "final_exps_before": be.final_exps}
+    res.update(drive(lambda: [be.batch_verify_grouped(sigs, msgs, vk, params)], [True]))
+    _one_check_per_call(be, res, "grouped_checks")
+    rate = BATCH / res["warm_wall_s"]
+
+    run = lambda s, m: be.batch_verify_grouped(s, m, vk, params)
+    mid, last = BATCH // 2 - 1, BATCH - 1  # 511, 1023
+    _quiet(lambda: run(_forged_sigma_2(params, sigs, mid), msgs), False, "sigma_2 doubled")
+    wrong = [list(m) for m in msgs]
+    wrong[last][0] = (wrong[last][0] + 1) % R
+    _quiet(lambda: run(sigs, wrong), False, "wrong message")
+    launches, final_exps = cuda_fp.LAUNCHES, be.final_exps
+    ident = list(sigs)
+    ident[mid] = type(sigs[mid])(None, sigs[mid].sigma_2)
+    _quiet(lambda: run(ident, msgs), False, "identity sigma_1")
+    if (cuda_fp.LAUNCHES, be.final_exps) != (launches, final_exps):
+        raise AssertionError("an identity sigma_1 reached the device")
+    log(
+        "grouped", batch=BATCH, attrs=entry.MSG_COUNT, **res,
+        grouped_verifies_per_s=rate, exact_verifies_per_s=exact_rate,
+        exact_window=be.window, ratio_to_exact=rate / exact_rate,
+        forged_batches_false={"sigma_2 doubled": mid, "wrong message": last},
+        identity_sigma_1_false_without_device_work=True, card=card,
+    )
+    return res["launches_first_call"], rate
+
+
+def g2_verify_phase(card, g1_rates):
+    """Exact, combined and grouped verify under the G2 assignment."""
+    t0 = time.perf_counter()
+    params, _, vk, sigs, msgs = entry.fixture(BATCH, ctx="G2")
+    fixture_s = time.perf_counter() - t0
+    be = TorchBackend()  # cuda, window 9, raw wire
+    out, launches = {}, 0
+
+    fsigs, fmsgs, expect = entry.forge(params, sigs, msgs, every=FORGE_EVERY)
+    res = drive(lambda: be.batch_verify(fsigs, fmsgs, vk, params), expect)
+    out["exact"] = dict(res, forged=expect.count(False), verifies_per_s=BATCH / res["warm_wall_s"])
+
+    res = {"checks_before": be.combined_checks, "final_exps_before": be.final_exps}
+    res.update(drive(
+        lambda: ps.batch_verify(sigs, msgs, vk, params, be, mode="batched"),
+        [True] * BATCH,
+    ))
+    _one_check_per_call(be, res)
+    out["combined"] = dict(res, verifies_per_s=BATCH / res["warm_wall_s"])
+
+    res = {"checks_before": be.grouped_checks, "final_exps_before": be.final_exps}
+    res.update(drive(lambda: [be.batch_verify_grouped(sigs, msgs, vk, params)], [True]))
+    _one_check_per_call(be, res, "grouped_checks")
+    forged = _forged_sigma_2(params, sigs, BATCH // 2 - 1)
+    _quiet(
+        lambda: be.batch_verify_grouped(forged, msgs, vk, params), False, "G2 sigma_2 doubled"
+    )
+    out["grouped"] = dict(res, verifies_per_s=BATCH / res["warm_wall_s"])
+    for name, v in out.items():
+        launches += v["launches_first_call"]
+        v["ratio_to_g1"] = v["verifies_per_s"] / g1_rates[name]
+    log(
+        "g2_verify", batch=BATCH, attrs=entry.MSG_COUNT, ctx="G2", window=be.window,
+        raw_wire=be.raw_wire, fixture_s=fixture_s, **out,
+        g1_verifies_per_s=g1_rates, card=card,
+    )
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
@@ -378,8 +481,12 @@ def main():
     by_path = {}
     by_path["verify"], vbe, vhonest, vrate = main_path_phase(card)
     by_path["show"], sbe, shonest, srate = show_path_phase(card)
-    by_path["verify_combined"] = verify_combined_phase(card, vbe, vhonest, vrate)
+    by_path["verify_combined"], crate = verify_combined_phase(card, vbe, vhonest, vrate)
     by_path["show_combined"] = show_combined_phase(card, sbe, shonest, srate)
+    by_path["grouped"], grate = grouped_phase(card, vbe, vhonest, vrate)
+    by_path["g2_verify"] = g2_verify_phase(
+        card, {"exact": vrate, "combined": crate, "grouped": grate}
+    )
     kern["launches"] = sum(by_path.values())
     kern["launches_by_path"] = by_path
     print(json.dumps({"kernels": [kern]}), flush=True)

@@ -12,6 +12,9 @@ layout and names and imports nothing from it:
            data holders, the verify and show-verify fixtures and the entry
            point, and the bridge that carries JAX-encoded operands across
            for differential tests
+  ps.py, batchverify.py, errors.py
+           the protocol layer's batch checks and ladders, their combiners,
+           and the PSError they raise
 
 Entry points run on `cuda` unless the caller passes device="cpu".
 """

@@ -5,34 +5,35 @@ the fused verify program with example operands.
 
 `fixture` draws from the same seeded sequence as the JAX package's
 `__graft_entry__._fixture`, so one seed gives the same credentials in
-both. Credentials are signed with a master key (the output shape of
-unblind + aggregate) and need no hash-to-curve.
+both (under the default G1 assignment; under G2 the same draw multiplies
+the other groups' generators). Credentials are signed with a master key
+(the output shape of unblind + aggregate) and need no hash-to-curve.
 """
 
 import functools
 import random
 
-from .ops.curve import G1_GEN, G2_GEN
 from .ops.fields import R
 from .params import (
-    Params, PoKOfSignatureProof, SchnorrProof, SIGNATURES_IN_G1, Sigkey,
-    Signature, Verkey,
+    GroupContext, Params, PoKOfSignatureProof, SchnorrProof, SIGNATURES_IN_G1,
+    Sigkey, Signature, Verkey,
 )
 
 MSG_COUNT = 6  # attributes per credential (BASELINE config 2)
 
 
-def fixture(batch, msg_count=MSG_COUNT, seed=0xC0C0):
+def fixture(batch, msg_count=MSG_COUNT, seed=0xC0C0, ctx="G1"):
     """(params, sigkey, verkey, sigs, messages_list) for `batch` valid
-    credentials over `msg_count` attributes."""
-    return _credentials(random.Random(seed), batch, msg_count)
+    credentials over `msg_count` attributes, under the signature assignment
+    `ctx` ("G1": g, sigma and h in G1, g_tilde and the verkey in G2; "G2":
+    the reverse)."""
+    return _credentials(random.Random(seed), batch, msg_count, GroupContext(ctx))
 
 
-def _credentials(rng, batch, msg_count):
-    ctx = SIGNATURES_IN_G1
-    g = ctx.sig.mul(G1_GEN, rng.randrange(1, R))
-    g_tilde = ctx.other.mul(G2_GEN, rng.randrange(1, R))
-    h = [ctx.sig.mul(G1_GEN, rng.randrange(1, R)) for _ in range(msg_count)]
+def _credentials(rng, batch, msg_count, ctx=SIGNATURES_IN_G1):
+    g = ctx.sig.mul(ctx.sig_gen, rng.randrange(1, R))
+    g_tilde = ctx.other.mul(ctx.other_gen, rng.randrange(1, R))
+    h = [ctx.sig.mul(ctx.sig_gen, rng.randrange(1, R)) for _ in range(msg_count)]
     params = Params(g, g_tilde, h, ctx)
     sk = Sigkey(
         rng.randrange(1, R), [rng.randrange(1, R) for _ in range(msg_count)]

@@ -20,15 +20,23 @@ show-verify paths of `coconut_tpu/tpu/backend.py`:
   Miller pairs with ONE shared final exponentiation; the protocol layer
   (`coconut_tpu_torch.ps`) derives the r_i and bisects on a rejection.
 
+  encode_grouped_batch / fused_verify_grouped: the attribute-grouped
+  combination, ONE bool a batch from q+2 Miller pairs whatever B is. All
+  per-credential work is q+2 shared-point MSMs over the signature group
+  (_grouped_msms); the verkey's points and g_tilde are fixed inputs.
+
 Every field product runs through gpu/fp.mul: the CUDA kernel on `cuda`,
 its plain PyTorch version on `cpu`. Results are bit-identical to the
 reference (tests/test_torch_verify.py holds them against JaxBackend and
 the spec).
 
-This slice covers the G1 signature assignment (the default). The G2
-assignment is a later slice, and asks for it raise NotImplementedError.
+The verify family (exact, combined, grouped) runs under both signature
+assignments: ctx "G1" (signatures in G1, the default) and "G2" (the roles
+of the groups swap). The show family runs "G1"; asks for "G2" raise
+NotImplementedError (a later slice).
 """
 
+import secrets
 from collections import OrderedDict
 
 import numpy as np
@@ -41,11 +49,11 @@ from . import curve as cv
 from . import fp
 from . import pairing as pr
 from . import tower as tw
-from .limbs import fr_digits_signed_np
+from .limbs import fp_encode, fr_digits_signed_np
 
 _G2_LATER = (
-    "the G2 signature assignment is a later slice of the port; this slice "
-    "verifies ctx 'G1'"
+    "show verification under the G2 signature assignment is a later slice "
+    "of the port; it verifies shows under ctx 'G1'"
 )
 
 _SIGNED_NWIN = 52  # signed 5-bit windows covering the 255-bit Fr
@@ -55,6 +63,14 @@ _SIGNED_NWIN = 52  # signed 5-bit windows covering the 255-bit Fr
 # window, so their MSMs run the last _R_NWIN of the 52 windows.
 _R_RAND_BITS = 128
 _R_NWIN = -(-_R_RAND_BITS // 5) + 1  # 27
+
+# The grouped verify's schedule: signed 6-bit digits, 43 windows over Fr
+# and 33-entry tables built on the device; the 128-bit combiners fill the
+# last 23 windows.
+_G_WINDOW = 6
+_G_NWIN = -(-255 // _G_WINDOW)  # 43
+_G_RNWIN = -(-_R_RAND_BITS // _G_WINDOW) + 1  # 23
+_G_ENTRIES = (1 << (_G_WINDOW - 1)) + 1  # 33
 
 
 def resolve_device(device=None):
@@ -140,32 +156,54 @@ def _pts_f32(tree):
     return tw.tree_map(conv, tree)
 
 
+def _fields(sig_is_g1):
+    """(signature-group field, other-group field) of an assignment."""
+    return (cv.FP, cv.FP2) if sig_is_g1 else (cv.FP2, cv.FP)
+
+
 def verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2):
     """Post-MSM half of the fused verify: normalize the accumulator and run
     the two-pair pairing product e(s1, acc) * e(-s2, g_tilde) == 1, and-ed
-    with "sigma_1 is not the identity"."""
-    if not sig_is_g1:
-        raise NotImplementedError(_G2_LATER)
+    with "sigma_1 is not the identity".
+
+    The G1 assignment runs the two-pair loop with g_tilde's shared ladder
+    (pr.miller_two_pairs_shared_q2). Under G2 the accumulator and g_tilde
+    are the G1 side, and the generic pair set [B, 2] runs: P = (acc,
+    g_tilde), Q = (sigma_1, -sigma_2), g_tilde broadcast over the batch."""
     s1, s2n, gtx, gty = _pts_f32((s1, s2n, gtx, gty))
-    ax, ay, ainf = cv.to_affine(cv.FP2, acc)
-    f = pr.miller_two_pairs_shared_q2(
-        s1[0], s1[1], ax, ay, ~inf1 & ~ainf,
-        s2n[0], s2n[1], gtx, gty, ~inf2,
+    ax, ay, ainf = cv.to_affine(_fields(sig_is_g1)[1], acc)
+    if sig_is_g1:
+        f = pr.miller_two_pairs_shared_q2(
+            s1[0], s1[1], ax, ay, ~inf1 & ~ainf,
+            s2n[0], s2n[1], gtx, gty, ~inf2,
+        )
+        one = tw.fp12_is_one(pr.final_exp(f))
+        return one & ~inf1
+
+    def stack2(a, b):  # [B] lanes and [B] or constant -> [B, 2]
+        return tw.tree_map(
+            lambda x, y: torch.stack(torch.broadcast_tensors(x, y), dim=-2), a, b
+        )
+
+    pinf = torch.stack([ainf, torch.zeros_like(ainf)], dim=-1)
+    qinf = torch.stack([inf1, inf2], dim=-1)
+    one = pr.pairing_product_is_one(
+        stack2(ax, gtx), stack2(ay, gty), stack2(s1[0], s2n[0]),
+        stack2(s1[1], s2n[1]), ~(pinf | qinf),
     )
-    one = tw.fp12_is_one(pr.final_exp(f))
     return one & ~inf1
 
 
 def fused_verify(sig_is_g1, wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2):
     """Fused batch verify: comb MSM accumulator + 2-pair pairing product.
 
-    wtables: per-verkey comb tables (cv.build_comb_tables) in G2; mag/sgn:
-    signed comb digits [B, k, nwin]; s1/s2n: sigma_1 and -sigma_2
-    coordinate pairs [B]; gtx/gty: g_tilde's affine coordinates; inf1/inf2:
-    identity masks for sigma_1 / sigma_2. Returns bool [B]."""
-    if not sig_is_g1:
-        raise NotImplementedError(_G2_LATER)
-    acc = cv.msm_shared_comb(cv.FP2, wtables, mag, sgn)
+    sig_is_g1: signatures in G1 (ctx "G1"), the accumulator in G2; the
+    roles swap otherwise. wtables: per-verkey comb tables
+    (cv.build_comb_tables) in the other group; mag/sgn: signed comb digits
+    [B, k, nwin]; s1/s2n: sigma_1 and -sigma_2 coordinate pairs [B];
+    gtx/gty: g_tilde's affine coordinates; inf1/inf2: identity masks for
+    sigma_1 / sigma_2. Returns bool [B]."""
+    acc = cv.msm_shared_comb(_fields(sig_is_g1)[1], wtables, mag, sgn)
     return verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2)
 
 
@@ -244,7 +282,7 @@ def _tree_fold_fp12(f, n):
     return f
 
 
-def _combined_pairing(acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2):
+def _combined_pairing(sig_is_g1, acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2):
     """The RLC-combined pairing half shared by both combined programs:
 
       prod_i e(r_i sigma_1_i, acc_i) * e(sum_i r_i (-sigma_2_i), g_tilde) == 1
@@ -252,15 +290,22 @@ def _combined_pairing(acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2):
     B+1 Miller pairs on a [B+1, 1] pair set and ONE final exponentiation.
     Points are field elements already (_pts_f32). Dead lanes (identity
     sigma or accumulator) are masked to the identity before the sum and
-    out of the Miller product. Returns (the batch's bool [1], dead [B])."""
-    fl = cv.FP
+    out of the Miller product. Under G2 the r-MSMs, the fold and their
+    affines run over G2, and the signature side of each pair is its Q.
+    Returns (the batch's bool [1], dead [B])."""
+    fl, acc_fl = _fields(sig_is_g1)
     B = inf1.shape[0]
-    ax, ay, ainf = cv.to_affine(cv.FP2, acc)
+    ax, ay, ainf = cv.to_affine(acc_fl, acc)
     lift = lambda t: t[:, None]
+    lift_pt = lambda pt: tw.tree_map(lift, pt)
     # r_i sigma_1_i and r_i (-sigma_2_i): k = 1 distinct MSMs over the
     # 27-window schedule
-    s1r = cv.msm_distinct_signed(fl, lift(s1[0]), lift(s1[1]), inf1[:, None], rmag, rsgn)
-    s2rn = cv.msm_distinct_signed(fl, lift(s2n[0]), lift(s2n[1]), inf2[:, None], rmag, rsgn)
+    s1r = cv.msm_distinct_signed(
+        fl, lift_pt(s1[0]), lift_pt(s1[1]), inf1[:, None], rmag, rsgn
+    )
+    s2rn = cv.msm_distinct_signed(
+        fl, lift_pt(s2n[0]), lift_pt(s2n[1]), inf2[:, None], rmag, rsgn
+    )
     dead = inf1 | inf2 | ainf
     s2rn = tuple(
         fl.select(dead, i_, c)
@@ -277,10 +322,11 @@ def _combined_pairing(acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2):
 
     px, py = cat(sx, zx), cat(sy, zy)
     qx, qy = cat(ax, gtx), cat(ay, gty)
+    if not sig_is_g1:
+        px, py, qx, qy = qx, qy, px, py
     valid = torch.cat([~dead & ~sinf, ~zinf[None]])
     f = pr.multi_miller_loop(
-        tw.tree_map(lift, px), tw.tree_map(lift, py),
-        tw.tree_map(lift, qx), tw.tree_map(lift, qy), valid[:, None],
+        lift_pt(px), lift_pt(py), lift_pt(qx), lift_pt(qy), valid[:, None]
     )  # [B+1]
     head = tw.tree_map(lambda t: t[:B], f)
     tail = tw.tree_map(lambda t: t[B:], f)
@@ -301,11 +347,11 @@ def fused_verify_combined(
     accumulator) fails the whole batch; the host rejects identity sigmas
     before it gets here. Other operands as in fused_verify. Returns bool
     [] on the device."""
-    if not sig_is_g1:
-        raise NotImplementedError(_G2_LATER)
     s1, s2n, gtx, gty = _pts_f32((s1, s2n, gtx, gty))
-    acc = cv.msm_shared_comb(cv.FP2, wtables, mag, sgn)
-    ok, dead = _combined_pairing(acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2)
+    acc = cv.msm_shared_comb(_fields(sig_is_g1)[1], wtables, mag, sgn)
+    ok, dead = _combined_pairing(
+        sig_is_g1, acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2
+    )
     return ok[0] & ~dead.any()
 
 
@@ -330,7 +376,9 @@ def fused_show_verify_combined(
         commx, commy, comminf,
     )
     acc = _show_accumulator(acc_wtables, acc_mag, acc_sgn, jpt, jinf)
-    pair_ok, dead = _combined_pairing(acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2)
+    pair_ok, dead = _combined_pairing(
+        sig_is_g1, acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2
+    )
     return schnorr_ok & ~dead, pair_ok[0]
 
 
@@ -353,6 +401,119 @@ def _pow2_lanes(n):
     return 1 << max(1, (n - 1).bit_length())
 
 
+def _grouped_msms(fl, x, y, inf, mag, sgn):
+    """M MSMs over the SAME [B] points: signed 6-bit window digits mag/sgn
+    [M, B, nwin] (msb first, digit = (-1)^sgn * mag, mag <= 32) ->
+    projective accumulators [M].
+
+      1. one 33-entry table build on the device (32 adds over [B]);
+      2. ONE gather of the [M, nwin, B] table entries and the fold over B
+         (_grouped_window_sums);
+      3. Horner over the nwin window sums (_grouped_horner)."""
+    tables = cv.build_tables_device(fl, x, y, inf, entries=_G_ENTRIES)
+    return _grouped_horner(fl, _grouped_window_sums(fl, tables, mag, sgn))
+
+
+def _grouped_window_sums(fl, tables, mag, sgn):
+    """The table entry of every (msm, window, point), gathered per lane
+    (the reference's broadcast of the table to [M, nwin, B, 33] is never
+    made) with the sign applied as a Y-flip, then summed over B, pairing
+    lanes as the reference's fold_points(..., axis_offset=2) does ->
+    window sums [M, nwin]."""
+    M, B, nwin = mag.shape
+    dw = mag.permute(0, 2, 1).long()  # [M, nwin, B]; a uint8 index would mask
+    sw = sgn.permute(0, 2, 1)
+    lanes = torch.arange(B, device=dw.device)
+
+    def leaf(t):  # [B, 33, L] -> [M, nwin, B, L]
+        return t[lanes, dw]
+
+    X, Y, Z = (tw.tree_map(leaf, t) for t in tables)
+    Y = fl.select(sw, fl.neg(Y), Y)
+    return cv.fold_points(fl, (X, Y, Z), B, axis_offset=2)
+
+
+def _grouped_horner(fl, sums):
+    """Horner over window sums [M, nwin], msb first, from the identity: 6
+    doublings and one add on [M] lanes a window."""
+    lead = tw.leaves(sums)[0]  # [M, nwin, L]
+    M, nwin = lead.shape[:2]
+    acc = cv.jinfinity(fl, (M,), lead.device)
+    for w in range(nwin):
+        for _ in range(_G_WINDOW):
+            acc = cv.jdouble(fl, acc)
+        acc = cv.jadd(fl, acc, tw.tree_map(lambda t: t[:, w], sums))
+    return acc
+
+
+def grouped_accumulators(sig_fl, s1, s2n, inf1, inf2, cmag, csgn, rmag, rsgn):
+    """The per-credential half of the grouped verify: q+1 MSMs over
+    sigma_1 (scalars r_i, then r_i m_ij) and one over -sigma_2 (scalars
+    r_i, on the 23-window short schedule) -> projective accumulators
+    [q+2]."""
+    s1, s2n = _pts_f32((s1, s2n))
+    acc1 = _grouped_msms(sig_fl, s1[0], s1[1], inf1, cmag, csgn)  # [q+1]
+    acc2 = _grouped_msms(sig_fl, s2n[0], s2n[1], inf2, rmag, rsgn)  # [1]
+    return tw.tree_map(lambda a, b: torch.cat([a, b]), acc1, acc2)
+
+
+def grouped_tail(sig_is_g1, allacc, ox, oy, gtx, gty, any_dead):
+    """Post-MSM half of the grouped verify: the q+2 accumulators against
+    the fixed other-group points (X_tilde, Y_tilde_j, then g_tilde), one
+    Miller pair each, the Fp12 values folded (padded to a power of two
+    with ones), ONE final exponentiation, one bool."""
+    ox, oy, gtx, gty = _pts_f32((ox, oy, gtx, gty))
+    px, py, pinf = cv.to_affine(_fields(sig_is_g1)[0], allacc)  # [q+2]
+    cat = lambda a, b: torch.cat([a, b[None]])
+    qx, qy = tw.tree_map(cat, ox, gtx), tw.tree_map(cat, oy, gty)
+    valid = ~pinf  # a zero accumulator contributes the factor 1
+    npair = valid.shape[0]
+    f = _grouped_tail_miller(sig_is_g1, px, py, qx, qy, valid)
+    pow2 = 1 << (npair - 1).bit_length()
+    if pow2 != npair:
+        pad = tw.fp12_ones((pow2 - npair,), valid.device)
+        f = tw.tree_map(lambda a, b: torch.cat([a, b]), f, pad)
+    ok = tw.fp12_is_one(pr.final_exp(_tree_fold_fp12(f, pow2)))[0]
+    return ok & ~any_dead
+
+
+def _grouped_tail_miller(sig_is_g1, px, py, qx, qy, valid):
+    """multi_miller_loop on the [q+2, 1] pair set, the G1 points first:
+    the signature-group accumulators under G1, the verkey's under G2."""
+    if not sig_is_g1:
+        px, py, qx, qy = qx, qy, px, py
+    lift = lambda t: t[:, None]
+    return pr.multi_miller_loop(
+        tw.tree_map(lift, px), tw.tree_map(lift, py),
+        tw.tree_map(lift, qx), tw.tree_map(lift, qy), valid[:, None],
+    )
+
+
+def fused_verify_grouped(
+    sig_is_g1, s1, s2n, inf1, inf2, cmag, csgn, rmag, rsgn, ox, oy, gtx, gty
+):
+    """Attribute-grouped combined batch verify: ONE bool, q+2 Miller pairs
+    whatever the batch size. With 128-bit combiners r_i and messages m_ij,
+
+      prod_i [e(s1_i, X * prod_j Y_j^{m_ij}) * e(-s2_i, g)]^{r_i}
+      = e(sum_i r_i s1_i, X) * prod_j e(sum_i (r_i m_ij) s1_i, Y_j)
+        * e(sum_i r_i (-s2_i), g),
+
+    so the verkey's points X, Y_j and g are fixed inputs and all
+    per-credential work is q+2 shared-point MSMs over the signature group
+    (grouped_accumulators). A forged credential passes with probability
+    <= 2^-128.
+
+    s1/s2n: sigma_1 and -sigma_2 coordinate pairs [B] (B a power of two);
+    inf1/inf2: their identity masks (any identity fails the batch);
+    cmag/csgn [q+1, B, 43]: signed 6-bit digits of r_i, then r_i m_ij mod
+    R; rmag/rsgn [1, B, 23]: r_i's; ox/oy [q+1]: X_tilde then Y_tilde_j,
+    affine; gtx/gty: g_tilde. Returns bool [] on the device."""
+    sig_fl = _fields(sig_is_g1)[0]
+    allacc = grouped_accumulators(sig_fl, s1, s2n, inf1, inf2, cmag, csgn, rmag, rsgn)
+    return grouped_tail(sig_is_g1, allacc, ox, oy, gtx, gty, (inf1 | inf2).any())
+
+
 class TorchBackend:
     """Batched PyTorch/CUDA backend with the verify and show-verify surface
     of JaxBackend.
@@ -368,9 +529,10 @@ class TorchBackend:
     points as 48 raw bytes per Fp and enter the Montgomery domain on the
     device (default on cuda) instead of as int16 balanced limbs.
 
-    Counters: `combined_checks` (calls of the combined methods) and
-    `final_exps` (final-exponentiation lanes: B a batch on the exact
-    paths, one a combined check)."""
+    Counters: `combined_checks` (calls of the combined methods),
+    `grouped_checks` (calls of the grouped methods) and `final_exps`
+    (final-exponentiation lanes: B a batch on the exact paths, one a
+    combined or grouped check)."""
 
     name = "torch"
 
@@ -390,6 +552,7 @@ class TorchBackend:
         self.encode_cache_hits = 0
         self.encode_cache_misses = 0
         self.combined_checks = 0
+        self.grouped_checks = 0
         self.final_exps = 0
 
     # -- point encoding ------------------------------------------------------
@@ -407,6 +570,18 @@ class TorchBackend:
         inf = torch.from_numpy(np.array([p is None for p in points])).to(self.device)
         return self._encode_coords(xs, ys), inf
 
+    def _encode_sigs(self, params, sigma_1s, sigma_2s):
+        """sigma_1 and -sigma_2 of each lane, in the signature group of
+        whichever assignment params.ctx names -> (s1, s2n, inf1, inf2): the
+        per-batch half of an encode."""
+        if params.ctx.name == "G1":
+            enc, neg = self._encode_g1_points, _g1.neg
+        else:
+            enc, neg = self._encode_g2_points, _g2.neg
+        s1, inf1 = enc(sigma_1s)
+        s2n, inf2 = enc([None if p is None else neg(p) for p in sigma_2s])
+        return s1, s2n, inf1, inf2
+
     def _encode_coords(self, xs, ys):
         if self.raw_wire:
             return (
@@ -419,32 +594,35 @@ class TorchBackend:
         )
 
     def _encode_gt(self, params):
-        """g_tilde (the G2 generator of params), invariant per params."""
+        """g_tilde (the other group's generator of params), invariant per
+        params: an Fp2 pair under G1, an Fp pair under G2."""
         gt = params.g_tilde
-        return (
-            tw.fp2_encode_const(gt[0], self.device),
-            tw.fp2_encode_const(gt[1], self.device),
-        )
+        if params.ctx.name == "G1":
+            enc = lambda c: tw.fp2_encode_const(c, self.device)
+        else:
+            enc = lambda c: torch.from_numpy(fp_encode(c)).to(self.device)
+        return enc(gt[0]), enc(gt[1])
 
     # -- caches --------------------------------------------------------------
 
-    def _comb_tables(self, bases):
-        """Per-base-set comb tables in G2, LRU-cached (the hot users verify
-        many batches under one verkey)."""
-        key = (self.window, tuple(bases))
+    def _comb_tables(self, is_fp2, bases):
+        """Per-base-set comb tables in G2 (is_fp2) or G1, LRU-cached (the
+        hot users verify many batches under one verkey)."""
+        key = (self.window, is_fp2, tuple(bases))
         wt = self._comb_cache.get(key)
         if wt is None:
-            t_e = _build_tables(_g2, bases, self.entries, self.device)
-            wt = cv.build_comb_tables(cv.FP2, t_e, self.nwin, self.window)
+            spec, fl = (_g2, cv.FP2) if is_fp2 else (_g1, cv.FP)
+            t_e = _build_tables(spec, bases, self.entries, self.device)
+            wt = cv.build_comb_tables(fl, t_e, self.nwin, self.window)
             self._comb_cache.put(key, wt)
         return wt
 
     def _static_operands(self, kind, vk, params, extra, build):
         """The per-(verkey, params) invariant half of an encode, LRU-cached
-        under the program kind ("verify" / "show"), the verkey and params
-        coordinate ints, the comb window and `extra` (the show path's
-        revealed-index set): each program and each revealed set gets its
-        own entry, as in the reference."""
+        under the program kind ("verify" / "show" / "grouped"), the verkey
+        and params coordinate ints, the comb window and `extra` (the show
+        path's revealed-index set): each program and each revealed set gets
+        its own entry, as in the reference."""
         key = (
             kind,
             params.ctx.name,
@@ -474,21 +652,20 @@ class TorchBackend:
 
     def encode_verify_batch(self, sigs, messages_list, vk, params):
         """Host-side encoding of a verify batch into the fused operand tuple
-        (wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2)."""
-        if params.ctx.name != "G1":
-            raise NotImplementedError(_G2_LATER)
+        (wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2), under either
+        signature assignment."""
+        is_g1 = params.ctx.name == "G1"
 
         def build():
             bases = [vk.X_tilde] + list(vk.Y_tilde)
-            return (self._comb_tables(bases),) + self._encode_gt(params)
+            return (self._comb_tables(is_g1, bases),) + self._encode_gt(params)
 
         wtables, gtx, gty = self._static_operands("verify", vk, params, None, build)
         mag, sgn = self._comb_digits(
             [[1] + [m % R for m in msgs] for msgs in messages_list]
         )
-        s1, inf1 = self._encode_g1_points([s.sigma_1 for s in sigs])
-        s2n, inf2 = self._encode_g1_points(
-            [None if s.sigma_2 is None else _g1.neg(s.sigma_2) for s in sigs]
+        s1, s2n, inf1, inf2 = self._encode_sigs(
+            params, [s.sigma_1 for s in sigs], [s.sigma_2 for s in sigs]
         )
         return (wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2)
 
@@ -526,8 +703,8 @@ class TorchBackend:
             vc_bases = [params.g_tilde] + [vk.Y_tilde[i] for i in hidden]
             acc_bases = [vk.X_tilde] + [vk.Y_tilde[i] for i in revealed]
             return (
-                self._comb_tables(vc_bases),
-                self._comb_tables(acc_bases),
+                self._comb_tables(True, vc_bases),
+                self._comb_tables(True, acc_bases),
             ) + self._encode_gt(params)
 
         vc_wtables, acc_wtables, gtx, gty = self._static_operands(
@@ -548,12 +725,8 @@ class TorchBackend:
         acc_mag, acc_sgn = self._comb_digits(
             [[1] + [rm[i] % R for i in revealed] for rm in revealed_msgs_list]
         )
-        s1, inf1 = self._encode_g1_points([p.sigma_prime_1 for p in proofs])
-        s2n, inf2 = self._encode_g1_points(
-            [
-                None if p.sigma_prime_2 is None else _g1.neg(p.sigma_prime_2)
-                for p in proofs
-            ]
+        s1, s2n, inf1, inf2 = self._encode_sigs(
+            params, [p.sigma_prime_1 for p in proofs], [p.sigma_prime_2 for p in proofs]
         )
         return (
             vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j,
@@ -687,6 +860,92 @@ class TorchBackend:
         )
         self.final_exps += 1
         return [bool(b) for b in bits.cpu().tolist()[:B]], bool(pair_ok)
+
+    # -- attribute-grouped check ---------------------------------------------
+
+    @staticmethod
+    def _validate_grouped_inputs(sigs, messages_list, vk):
+        B = len(sigs)
+        q = len(vk.Y_tilde)
+        if len(messages_list) != B:
+            raise ValueError(
+                "batch size mismatch: %d sigs, %d message vectors"
+                % (B, len(messages_list))
+            )
+        for msgs in messages_list:
+            if len(msgs) != q:
+                raise ValueError(
+                    "message vector length %d != msg_count %d" % (len(msgs), q)
+                )
+
+    def encode_grouped_batch(self, sigs, messages_list, vk, params):
+        """Host-side encoding of a grouped verify batch into the
+        fused_verify_grouped operand tuple (everything after sig_is_g1):
+        pads the batch to a power of two with clones of lane 0, draws the
+        combiners r_i from the CSPRNG (`secrets`, as the reference does:
+        they are the check's soundness), builds the scalar rows r_i and
+        r_i m_ij mod R and recodes them on the signed 6-bit / 43-window
+        schedule. Callers have rejected empty batches and identity
+        sigmas."""
+        B = len(sigs)
+        q = len(vk.Y_tilde)
+        Bp = _pow2_lanes(B)
+        pad = Bp - B
+        sigs = list(sigs) + [sigs[0]] * pad
+        messages_list = list(messages_list) + [messages_list[0]] * pad
+        rs = [secrets.randbits(_R_RAND_BITS) for _ in range(Bp)]
+        rows = [rs] + [
+            [r * (msgs[j] % R) % R for r, msgs in zip(rs, messages_list)]
+            for j in range(q)
+        ]
+        recoded = [fr_digits_signed_np(row, nwin=_G_NWIN, window=_G_WINDOW) for row in rows]
+        # r_i have _R_RAND_BITS bits, so only the last _G_RNWIN msb-first
+        # windows of the r-row may be nonzero; a wider draw must not lose
+        # its top windows
+        if recoded[0][0][:, : _G_NWIN - _G_RNWIN].any():
+            raise ValueError(
+                "combiner scalar exceeds %d bits: top windows nonzero" % _R_RAND_BITS
+            )
+        cmag = torch.from_numpy(np.stack([m for m, _ in recoded])).to(self.device)
+        csgn = torch.from_numpy(np.stack([g for _, g in recoded])).to(self.device)
+        rmag = cmag[:1, :, _G_NWIN - _G_RNWIN :]
+        rsgn = csgn[:1, :, _G_NWIN - _G_RNWIN :]
+        s1, s2n, inf1, inf2 = self._encode_sigs(
+            params, [s.sigma_1 for s in sigs], [s.sigma_2 for s in sigs]
+        )
+
+        def build():
+            others = [vk.X_tilde] + list(vk.Y_tilde)
+            ox = tw.encode_batch([p[0] for p in others], self.device)
+            oy = tw.encode_batch([p[1] for p in others], self.device)
+            return (ox, oy) + self._encode_gt(params)
+
+        ox, oy, gtx, gty = self._static_operands("grouped", vk, params, None, build)
+        return (s1, s2n, inf1, inf2, cmag, csgn, rmag, rsgn, ox, oy, gtx, gty)
+
+    def batch_verify_grouped_async(self, sigs, messages_list, vk, params):
+        """Enqueue the grouped verify of the whole batch; returns a zero-arg
+        finalizer that waits for its ONE bool. Mismatched inputs raise; an
+        empty batch is True and a batch holding an identity sigma False,
+        both before any device work."""
+        self._validate_grouped_inputs(sigs, messages_list, vk)
+        self.grouped_checks += 1
+        if not sigs:
+            return lambda: True
+        if any(s.sigma_1 is None or s.sigma_2 is None for s in sigs):
+            return lambda: False
+        operands = self.encode_grouped_batch(sigs, messages_list, vk, params)
+        ok = fused_verify_grouped(params.ctx.name == "G1", *operands)
+        self.final_exps += 1
+        return lambda: bool(ok)
+
+    def batch_verify_grouped(self, sigs, messages_list, vk, params):
+        """ONE bool for the whole batch by the attribute-grouped
+        combination (fused_verify_grouped): q+2 Miller pairs and one final
+        exponentiation whatever B is, all per-credential work in
+        shared-point MSMs over the signature group. A forged credential
+        passes with probability <= 2^-128."""
+        return self.batch_verify_grouped_async(sigs, messages_list, vk, params)()
 
     # -- generic pairing product --------------------------------------------
 

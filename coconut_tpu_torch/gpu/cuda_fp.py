@@ -221,7 +221,7 @@ def _school(x, y):
     yb = y[:, None, :]
     part = x.new_zeros((n, 4, NLIMBS + blk - 1))
     for i in range(blk):
-        part[:, :, i : i + NLIMBS] += xb[:, :, i : i + 1] * yb
+        part[:, :, i : i + NLIMBS].addcmul_(xb[:, :, i : i + 1], yb)
     t = x.new_zeros((n, _OUT2))
     for j in range(4):
         t[:, blk * j : blk * (j + 1) + NLIMBS - 1] += part[:, j]
@@ -232,9 +232,10 @@ def _pass(t):
     """One carry pass: hi = round_half_even(t / 256) (torch.round rounds
     ties to even, like jnp.round), lo = t - 256 hi, hi shifted up a limb
     with the top limb's carry dropped."""
-    hi = torch.round(t * (1.0 / 256.0))
-    lo = t - hi * 256.0
-    return lo + F.pad(hi[..., :-1], (1, 0))
+    hi = (t * (1.0 / 256.0)).round_()
+    lo = t.add(hi, alpha=-256.0)
+    lo[..., 1:] += hi[..., :-1]
+    return lo
 
 
 def _norm(t, passes):

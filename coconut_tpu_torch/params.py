@@ -1,5 +1,5 @@
-"""Minimal data holders for the verify and show-verify slices: a G1 group
-context and the Params / Signature / Verkey / proof shapes the backend
+"""Minimal data holders for the verify and show-verify slices: the group
+contexts of both signature assignments and the Params / Signature / Verkey / proof shapes the backend
 reads.
 
 TorchBackend reads these by duck typing (sig.sigma_1, sig.sigma_2,
@@ -10,23 +10,28 @@ package's own included. The holders carry data only: the prover and the
 Fiat-Shamir challenge are not part of the port yet.
 """
 
-from .ops.curve import g1, g2
+from .ops.curve import G1_GEN, G2_GEN, g1, g2
 
 
 class GroupContext:
-    """Binds the roles SignatureGroup / OtherGroup to concrete groups. Only
-    the G1 signature assignment (the default) is in this slice."""
+    """Binds the roles SignatureGroup / OtherGroup to concrete groups: "G1"
+    puts signatures in G1 and verkeys in G2 (the default), "G2" the
+    reverse."""
 
     def __init__(self, name):
-        if name != "G1":
-            raise NotImplementedError(
-                "the %r signature assignment is a later slice of the port" % name
-            )
+        if name == "G1":
+            self.sig, self.other = g1, g2
+            self.sig_gen, self.other_gen = G1_GEN, G2_GEN
+        elif name == "G2":
+            self.sig, self.other = g2, g1
+            self.sig_gen, self.other_gen = G2_GEN, G1_GEN
+        else:
+            raise ValueError("unknown signature group %r" % (name,))
         self.name = name
-        self.sig, self.other = g1, g2
 
 
 SIGNATURES_IN_G1 = GroupContext("G1")
+SIGNATURES_IN_G2 = GroupContext("G2")
 
 
 class Params:

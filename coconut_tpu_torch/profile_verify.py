@@ -1,14 +1,15 @@
 """Where the time of one batched verify or show verify goes, on the GPU.
 
     python3 -m coconut_tpu_torch.profile_verify
-        [--path verify|show|verify_combined|show_combined]
+        [--path verify|show|verify_combined|show_combined|grouped]
         [--batch 1024] [--out FILE]
 
 Builds the path's entry fixture (B credentials, 6 attributes, one lane in 8
 forged; for `show`, shows revealing attributes {2, 3, 4, 5}; the combined
 paths take the honest fixture, all lanes true, through ps.batch_verify /
-ps.batch_show_verify in mode "batched"), warms TorchBackend up once, then
-measures a warm batch three ways:
+ps.batch_show_verify in mode "batched"; `grouped` the honest fixture
+through TorchBackend.batch_verify_grouped, one bool), warms TorchBackend up
+once, then measures a warm batch three ways:
 
   stages    host wall time (synchronized) and kernel launches of each stage
             of the path: for `verify` host encode, comb MSM, affine
@@ -22,6 +23,12 @@ measures a warm batch three ways:
             accumulator's affine, the two r-MSMs over G1, the fold of the
             r (-sigma_2) points, the two G1 affines, the Miller loop over
             B+1 pairs, the tree fold of the Fp12 values, ONE final
+            exponentiation and the test; for `grouped` host encode (the
+            combiners, their digit rows and the sigma points), then for
+            sigma_1 (q+1 MSMs) and for -sigma_2 (one MSM) the 33-entry
+            table build, the gather and fold over B, and the Horner pass,
+            then the affine of the q+2 accumulators, the Miller loop over
+            q+2 pairs, the fold of the Fp12 values, ONE final
             exponentiation and the test; and the field kernel's launches of
             that batch by width (lanes);
   profile   torch.profiler over one warm batch: device time by kernel name,
@@ -46,7 +53,10 @@ from .gpu import cuda_fp
 from .gpu import curve as cv
 from .gpu import pairing as pr
 from .gpu import tower as tw
-from .gpu.backend import TorchBackend, _combiner_digits, _pts_f32, _tree_fold_fp12
+from .gpu.backend import (
+    _G_ENTRIES, TorchBackend, _combiner_digits, _grouped_horner, _grouped_tail_miller,
+    _grouped_window_sums, _pts_f32, _tree_fold_fp12,
+)
 
 
 def _stage(fn):
@@ -192,6 +202,50 @@ def show_combined_stages(be, proofs, vk, params, rmsgs, challenges):
     return [bool(b) and ok for b in bits], out
 
 
+def grouped_stages(be, sigs, msgs, vk, params):
+    """The grouped verify's stages (fused_verify_grouped), one after
+    another, each timed to a device synchronize. Returns ([the batch's
+    bool], stages)."""
+    out = {}
+    ops, out["encode"] = _stage(lambda: be.encode_grouped_batch(sigs, msgs, vk, params))
+    s1, s2n, inf1, inf2, cmag, csgn, rmag, rsgn, ox, oy, gtx, gty = ops
+    fl = cv.FP if params.ctx.name == "G1" else cv.FP2
+    accs = []
+    for name, pt, inf, mag, sgn in (("s1", s1, inf1, cmag, csgn), ("s2", s2n, inf2, rmag, rsgn)):
+        tables, out[name + "_tables"] = _stage(
+            lambda: cv.build_tables_device(fl, *_pts_f32(pt), inf, entries=_G_ENTRIES)
+        )
+        sums, out[name + "_gather_fold"] = _stage(
+            lambda: _grouped_window_sums(fl, tables, mag, sgn)
+        )
+        acc, out[name + "_horner"] = _stage(lambda: _grouped_horner(fl, sums))
+        accs.append(acc)
+
+    def affine():
+        allacc = tw.tree_map(lambda a, b: torch.cat([a, b]), *accs)
+        return _pts_f32((ox, oy, gtx, gty)), cv.to_affine(fl, allacc)
+
+    ((ox, oy, gtx, gty), (px, py, pinf)), out["acc_affine"] = _stage(affine)
+    cat = lambda a, b: torch.cat([a, b[None]])
+    qx, qy = tw.tree_map(cat, ox, gtx), tw.tree_map(cat, oy, gty)
+    f, out["miller"] = _stage(
+        lambda: _grouped_tail_miller(params.ctx.name == "G1", px, py, qx, qy, ~pinf)
+    )
+    npair = pinf.shape[0]
+    pow2 = 1 << (npair - 1).bit_length()
+
+    def fold():
+        pad = tw.fp12_ones((pow2 - npair,), pinf.device)
+        return _tree_fold_fp12(tw.tree_map(lambda a, b: torch.cat([a, b]), f, pad), pow2)
+
+    prod, out["fold"] = _stage(fold)
+    fe, out["final_exp"] = _stage(lambda: pr.final_exp(prod))
+    ok, out["is_one"] = _stage(
+        lambda: bool(tw.fp12_is_one(fe)[0] & ~(inf1 | inf2).any())
+    )
+    return [ok], out
+
+
 def _schnorr_stages(out, ops):
     """The show programs' Schnorr stages and the pairing accumulator, into
     `out`. Returns (Schnorr bits [B], the accumulator)."""
@@ -289,7 +343,8 @@ def profile(run):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
-        "--path", choices=("verify", "show", "verify_combined", "show_combined"),
+        "--path",
+        choices=("verify", "show", "verify_combined", "show_combined", "grouped"),
         default="verify",
     )
     ap.add_argument("--batch", type=int, default=1024)
@@ -302,7 +357,12 @@ def main(argv=None):
     combined = args.path.endswith("_combined")
     if combined and args.batch & (args.batch - 1):
         raise SystemExit("profile_verify: the combined paths take a power-of-two batch")
-    if args.path.startswith("verify"):
+    if args.path == "grouped":
+        params, _, vk, sigs, msgs = entry.fixture(args.batch)
+        expect = [True]
+        run = lambda: [be.batch_verify_grouped(sigs, msgs, vk, params)]
+        staged = lambda: grouped_stages(be, sigs, msgs, vk, params)
+    elif args.path.startswith("verify"):
         params, _, vk, sigs, msgs = entry.fixture(args.batch)
         if combined:
             expect = [True] * args.batch

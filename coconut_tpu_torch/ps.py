@@ -18,21 +18,29 @@ equal.
 
 The port has no Fiat-Shamir and no spec prover yet: `challenges` is
 required, and a show batch must share one revealed-index set.
+
+The refusals the reference raises as `PSError` (batch-size mismatches, an
+unknown mode, revealed messages that do not match a proof) raise the
+port's `errors.PSError`, of the same name and code. A batch that mixes
+revealed-index sets, which the reference verifies proof by proof, raises
+ValueError.
 """
+
+from .errors import PSError
 
 MODES = ("exact", "batched")
 
 
 def _check_mode(mode):
     if mode not in MODES:
-        raise ValueError("unknown verify mode %r" % (mode,))
+        raise PSError("unknown verify mode %r" % (mode,))
 
 
 def batch_verify(sigs, messages_list, vk, params, backend, mode="exact", epoch=None):
     """One bool per credential of a batch under one verkey. `epoch` (the
     key epoch) joins the combiners' domain separation in batched mode."""
     if len(sigs) != len(messages_list):
-        raise ValueError(
+        raise PSError(
             "batch size mismatch: %d sigs, %d message vectors"
             % (len(sigs), len(messages_list))
         )
@@ -85,15 +93,20 @@ def batch_show_verify(
     combined product; a lane's verdict is its Schnorr bit and its pairing
     bit. Dead lanes (identity sigma') fail through their Schnorr bit and
     never enter the fold or the ladder."""
-    if not len(proofs) == len(revealed_msgs_list) == len(challenges):
-        raise ValueError(
-            "batch size mismatch: %d proofs, %d revealed maps, %d challenges"
-            % (len(proofs), len(revealed_msgs_list), len(challenges))
+    if len(proofs) != len(revealed_msgs_list):
+        raise PSError(
+            "batch size mismatch: %d proofs, %d revealed maps"
+            % (len(proofs), len(revealed_msgs_list))
         )
     _check_mode(mode)
+    if len(challenges) != len(proofs):
+        raise PSError(
+            "batch size mismatch: %d proofs, %d challenges"
+            % (len(proofs), len(challenges))
+        )
     for p, rm in zip(proofs, revealed_msgs_list):
         if set(rm.keys()) != p.revealed_msg_indices:
-            raise ValueError("revealed messages do not match proof's indices")
+            raise PSError("revealed messages do not match proof's indices")
     if any(p.revealed_msg_indices != proofs[0].revealed_msg_indices for p in proofs):
         raise ValueError(
             "the batch mixes revealed-index sets; the port verifies one set "

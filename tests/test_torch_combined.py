@@ -29,13 +29,14 @@ from coconut_tpu.backend import PythonBackend
 from coconut_tpu.ops import pairing as spec_pairing
 from coconut_tpu.ops import serialize as jser
 from coconut_tpu.ops.curve import G1_GEN, G2_GEN, g1 as sg1, g2 as sg2
-from coconut_tpu.params import DEFAULT_CTX, GroupContext
+from coconut_tpu.params import DEFAULT_CTX, GroupContext, Params as SpecParams
 from coconut_tpu.pok_vc import Proof as SpecSchnorrProof
 from coconut_tpu.ps import PoKOfSignatureProof as SpecProof
 from coconut_tpu.signature import Signature as SpecSignature, Verkey as SpecVerkey
 from coconut_tpu.tpu import backend as jbe
 from coconut_tpu_torch import batchverify as bv
 from coconut_tpu_torch import entry, ps
+from coconut_tpu_torch.errors import CoconutError, PSError
 from coconut_tpu_torch.convert import operands_from_numpy
 from coconut_tpu_torch.gpu import cuda_fp
 from coconut_tpu_torch.gpu import pairing as pr
@@ -66,6 +67,15 @@ def creds():
     """__graft_entry__._fixture's B = 4 credentials (JAX package objects)
     and entry.fixture's (the port's holders): the same draw."""
     return graft._fixture(batch=4), entry.fixture(4)
+
+
+def _g2_creds(n):
+    """entry.fixture(n, ctx="G2")'s credentials as the JAX package's objects
+    (which the port reads by duck typing): (params, vk, sigs, msgs)."""
+    params, _, vk, sigs, msgs = entry.fixture(n, msg_count=2, ctx="G2")
+    jparams = SpecParams(params.g, params.g_tilde, params.h, GroupContext("G2"))
+    jsigs = [SpecSignature(s.sigma_1, s.sigma_2) for s in sigs]
+    return jparams, SpecVerkey(vk.X_tilde, vk.Y_tilde), jsigs, msgs
 
 
 def _spec(p):
@@ -253,9 +263,10 @@ def _tuple_tree(t):
 
 
 def test_jax_operands_through_port_fused_verify_combined(creds):
-    """B = 4 with lane 2's sigma_2 doubled: the JAX encoder's operands and
-    the JAX package's combiner digits through the port's program reject the
-    batch, as PythonBackend's combined check does with the same r."""
+    """B = 4 with lane 2's sigma_2 doubled, under each signature
+    assignment: the JAX encoder's operands and the JAX package's combiner
+    digits through the port's program reject the batch, as PythonBackend's
+    combined check does with the same r."""
     (jparams, _, jvk, jsigs, jmsgs), _ = creds
     sigs = list(jsigs)
     sigs[2] = SpecSignature(sigs[2].sigma_1, sg1.mul(sigs[2].sigma_2, 2))
@@ -267,15 +278,22 @@ def test_jax_operands_through_port_fused_verify_combined(creds):
     assert cuda_fp.PLAIN_CALLS > plain  # CPU tensors: the plain path
     assert ok.shape == () and not bool(ok)
     assert PythonBackend().batch_verify_combined(sigs, jmsgs, jvk, jparams, rs=RS) is False
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fused_verify_combined(False, wtables, mag, sgn, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2)
+    # the G2 assignment: signatures in G2, the verkey and g_tilde in G1
+    params, vk, sigs, msgs = _g2_creds(4)
+    sigs[2] = SpecSignature(sigs[2].sigma_1, sg2.mul(sigs[2].sigma_2, 2))
+    ops = jbe.JaxBackend().encode_verify_batch(sigs, msgs, vk, params)
+    wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2 = operands_from_numpy(_tuple_tree(ops), CPU)
+    ok = fused_verify_combined(False, wtables, mag, sgn, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2)
+    assert ok.shape == () and not bool(ok)
+    assert PythonBackend().batch_verify_combined(sigs, msgs, vk, params, rs=RS) is False
 
 
 def test_batch_verify_combined_matches_python_backend(creds):
     """B = 3 honest credentials (padded to 4 with a clone of lane 0) with
     pinned r: one combined check and one final exponentiation, True as
-    PythonBackend's. The host refuses identity sigmas, empty batches and a
-    wrong r count without running a program."""
+    PythonBackend's, under each signature assignment. The host refuses
+    identity sigmas, empty batches and a wrong r count without running a
+    program."""
     (jparams, _, jvk, jsigs, jmsgs), (params, _, vk, sigs, msgs) = creds
     be = TorchBackend(device="cpu", comb_window=4)
     assert be.batch_verify_combined(sigs[:3], msgs[:3], vk, params, rs=RS[:3]) is True
@@ -289,11 +307,10 @@ def test_batch_verify_combined_matches_python_backend(creds):
     with pytest.raises(ValueError, match="combiner count"):
         be.batch_verify_combined(sigs, msgs, vk, params, rs=RS[:3])
     assert (be.combined_checks, be.final_exps) == (5, 1)
-    g2 = types.SimpleNamespace(
-        g=params.g, g_tilde=params.g_tilde, ctx=types.SimpleNamespace(name="G2")
-    )
-    with pytest.raises(NotImplementedError, match="later slice"):
-        be.batch_verify_combined(sigs, msgs, vk, g2, rs=RS)
+    g2params, g2vk, g2sigs, g2msgs = _g2_creds(3)
+    assert be.batch_verify_combined(g2sigs, g2msgs, g2vk, g2params, rs=RS[:3]) is True
+    assert py.batch_verify_combined(g2sigs, g2msgs, g2vk, g2params, rs=RS[:3]) is True
+    assert (be.combined_checks, be.final_exps) == (6, 2)
 
 
 def test_batch_show_verify_combined_matches_python_backend(creds, shows):
@@ -430,24 +447,46 @@ def test_show_ladder_names_the_forged_lanes(case):
 
 
 def test_ladder_edges_and_validation():
+    """Where coconut_tpu.ps raises PSError, the port raises its own PSError
+    (coconut_tpu_torch.errors), of the same name and wire code; the
+    mixed revealed-index set, which the reference verifies proof by proof,
+    is the port's ValueError."""
     stub = _Stub([])
     assert ps.batch_verify([], [], "vk", "params", stub, mode="batched") == []
     assert ps.batch_show_verify([], "vk", "params", [], [], stub, mode="batched") == []
     assert stub.calls == []
-    with pytest.raises(ValueError, match="unknown verify mode"):
+    with pytest.raises(PSError, match="unknown verify mode"):
         ps.batch_verify([0], [[0]], "vk", "params", stub, mode="bogus")
-    with pytest.raises(ValueError, match="batch size"):
+    with pytest.raises(PSError, match="batch size"):
         ps.batch_verify([0, 1], [[0]], "vk", "params", stub, mode="batched")
     proofs, rmsgs, chals = _show_lanes([True, True])
-    with pytest.raises(ValueError, match="unknown verify mode"):
+    with pytest.raises(PSError, match="unknown verify mode"):
         ps.batch_show_verify(proofs, "vk", "params", rmsgs, chals, stub, mode="bogus")
-    with pytest.raises(ValueError, match="batch size"):
+    with pytest.raises(PSError, match="batch size"):
         ps.batch_show_verify(proofs, "vk", "params", rmsgs, chals[:1], stub)
+    with pytest.raises(PSError, match="batch size"):
+        ps.batch_show_verify(proofs, "vk", "params", rmsgs[:1], chals, stub)
     proofs[1].revealed_msg_indices = {3}
-    with pytest.raises(ValueError, match="do not match"):
+    with pytest.raises(PSError, match="do not match"):
         ps.batch_show_verify(proofs, "vk", "params", rmsgs, chals, stub)
     with pytest.raises(ValueError, match="mixes revealed-index sets"):
         ps.batch_show_verify(proofs, "vk", "params", [{2: 0}, {3: 0}], chals, stub)
+
+
+def test_ps_error_matches_the_reference():
+    """B = 1, mode "bogus": both packages raise a PSError with code
+    "ps_error", a CoconutError and not a ValueError."""
+    from coconut_tpu.errors import CoconutError as JaxCoconutError, PSError as JaxPSError
+
+    with pytest.raises(JaxPSError) as want:
+        jps.batch_verify([0], [[0]], "vk", "params", backend=_Stub([True]), mode="bogus")
+    with pytest.raises(PSError) as got:
+        ps.batch_verify([0], [[0]], "vk", "params", _Stub([True]), mode="bogus")
+    for err, base in ((got.value, CoconutError), (want.value, JaxCoconutError)):
+        assert type(err).__name__ == "PSError" and err.code == "ps_error"
+        assert isinstance(err, base) and not isinstance(err, ValueError)
+    assert str(got.value) == str(want.value)
+    assert CoconutError.code == JaxCoconutError.code == "error"
 
 
 # --- the JAX package's combined programs (heavy) ----------------------------

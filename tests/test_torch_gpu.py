@@ -1,7 +1,7 @@
 """Card-only tests of the port: the CUDA Montgomery kernel against its plain
 PyTorch version on the GPU, the wrapper's checks, and the verify,
-show-verify and combined paths on `cuda` against the same paths on the
-CPU.
+show-verify, combined and grouped paths (the verify family under both
+signature assignments) on `cuda` against the same paths on the CPU.
 
 Marked `gpu`; each test skips where no CUDA card is present. On a machine
 with one: `python -m pytest tests/test_torch_gpu.py -q`. Tolerance: exact
@@ -154,3 +154,53 @@ def test_combined_checks_on_cuda_match_cpu(cuda):
         cpu.batch_verify_combined(fsigs, fmsgs, vk, params),
         cpu.batch_show_verify_combined(proofs, vk, params, rmsgs, challenges),
     )
+
+
+def _double_sigma_2(params, sigs, lane):
+    sigs = list(sigs)
+    s = sigs[lane]
+    sigs[lane] = type(s)(s.sigma_1, params.ctx.sig.mul(s.sigma_2, 2))
+    return sigs
+
+
+def test_grouped_verify_on_cuda_matches_cpu(cuda):
+    """B = 64 under G1: the grouped check is True on the honest batch and
+    False with lane 31's sigma_2 doubled, on the card (the kernel launched,
+    the plain version never, one final exponentiation a check), as on the
+    CPU."""
+    params, _, vk, sigs, msgs = entry.fixture(64)
+    forged = _double_sigma_2(params, sigs, 31)
+    be = TorchBackend()
+    launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    got = (
+        be.batch_verify_grouped(sigs, msgs, vk, params),
+        be.batch_verify_grouped(forged, msgs, vk, params),
+    )
+    assert got == (True, False)
+    assert cuda_fp.LAUNCHES > launches and cuda_fp.PLAIN_CALLS == plain
+    assert (be.grouped_checks, be.final_exps) == (2, 2)
+    cpu = TorchBackend(device="cpu")
+    assert got == (
+        cpu.batch_verify_grouped(sigs, msgs, vk, params),
+        cpu.batch_verify_grouped(forged, msgs, vk, params),
+    )
+
+
+def test_g2_verify_family_on_cuda(cuda):
+    """B = 64 under the G2 assignment, on the card at window 9 and raw
+    wire: exact verify with one lane in 8 forged gives the expected bits
+    (the CPU's too); the combined and grouped checks are True on the honest
+    batch and False with lane 31's sigma_2 doubled. The kernel launched, the
+    plain version never."""
+    params, _, vk, sigs, msgs = entry.fixture(64, ctx="G2")
+    fsigs, fmsgs, expect = entry.forge(params, sigs, msgs, every=8)
+    forged = _double_sigma_2(params, sigs, 31)
+    be = TorchBackend()
+    launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    assert be.batch_verify(fsigs, fmsgs, vk, params) == expect
+    for check in (be.batch_verify_combined, be.batch_verify_grouped):
+        assert check(sigs, msgs, vk, params) is True
+        assert check(forged, msgs, vk, params) is False
+    assert cuda_fp.LAUNCHES > launches and cuda_fp.PLAIN_CALLS == plain
+    assert (be.combined_checks, be.grouped_checks) == (2, 2)
+    assert TorchBackend(device="cpu").batch_verify(fsigs, fmsgs, vk, params) == expect

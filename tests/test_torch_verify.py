@@ -9,7 +9,6 @@ Tolerance: exact — verdict bits must be equal.
 """
 
 import random
-import types
 
 import numpy as np
 import pytest
@@ -108,13 +107,33 @@ def test_static_operand_cache(setup, port_backend):
     assert port_backend.batch_verify([], [], vk, params) == []
 
 
-def test_g2_assignment_is_a_later_slice(setup, port_backend):
-    params, vk, sigs, msgs_list, _ = setup
-    g2_params = types.SimpleNamespace(
-        g=params.g, g_tilde=params.g_tilde, ctx=types.SimpleNamespace(name="G2")
+def test_g2_assignment_is_a_later_slice(port_backend):
+    """The G2 assignment, a later slice until the grouped verify's, through
+    the same call: encode_verify_batch under ctx "G2" (signatures in G2,
+    the verkey and g_tilde in G1) yields operands that decode to the spec's
+    points — sigma_1 and -sigma_2 as Fp2 pairs, g_tilde as an Fp pair, and
+    comb-table entries (j, w, d) equal to d * 64^(nwin-1-w) * base_j over
+    G1. The program's G2 bits are in tests/test_torch_g2.py."""
+    from coconut_tpu.ops.curve import g1 as sg1, g2 as sg2
+    from coconut_tpu_torch.gpu import curve as cv
+    from coconut_tpu_torch.gpu.backend import _pts_f32
+
+    params, _, vk, sigs, msgs = entry.fixture(2, msg_count=2, ctx="G2")
+    wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2 = port_backend.encode_verify_batch(
+        sigs, msgs, vk, params
     )
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_backend.encode_verify_batch(sigs, msgs_list, vk, g2_params)
+    s1, s2n, gtx, gty = _pts_f32((s1, s2n, gtx, gty))
+    pts = lambda xy: list(zip(tw.decode_batch(xy[0]), tw.decode_batch(xy[1])))
+    assert pts(s1) == [s.sigma_1 for s in sigs]
+    assert pts(s2n) == [sg2.neg(s.sigma_2) for s in sigs]
+    assert pts((gtx[None], gty[None])) == [params.g_tilde]
+    assert (inf1 | inf2).tolist() == [False, False] and mag.shape == (2, 3, 43)
+    bases = [vk.X_tilde] + vk.Y_tilde
+    at = [(0, 42, 1), (1, 0, 32), (2, 20, 17)]  # (base, window, digit)
+    X, Y, Z = (torch.stack([t[j, w, d] for j, w, d in at]) for t in wtables)
+    ax, ay, ainf = cv.to_affine(cv.FP, (X, Y, Z))
+    assert not ainf.any()
+    assert pts((ax, ay)) == [sg1.mul(bases[j], d * 64 ** (42 - w)) for j, w, d in at]
 
 
 @pytest.mark.parametrize("raw_wire", [True, False])
