@@ -51,18 +51,45 @@ Phases, one line each (plus the kernel table and the result line):
      true bits, one combined check a call) and the grouped check (True on
      the honest batch, False with lane 511's sigma_2 doubled), each cold
      and warm with its rate, beside the G1 rates of this process.
+ 10. prove: pok_sig.batch_show (the batched prover: one distinct MSM over
+     G1 with GLV for the sigma pair, one program of two comb MSMs over G2
+     for J and the Schnorr commitments, the packed uint8 readback,
+     Fiat-Shamir on the host) on the main path's honest credentials,
+     revealing {2, 3, 4, 5}, cold and three warm calls: proofs/s and the
+     launches of one warm batch by width. Every challenge equals the one
+     recomputed from its proof's transcript; ps.batch_show_verify with
+     challenges=None gives 1,024 true bits in exact mode and in batched
+     mode (one combined check a call), each cold and warm, FS
+     show-verifies/s beside the show_path rate; the batch forged one show
+     in 8 gives the expected bits; 8 sampled proofs pass the host spec
+     verifier (pok_sig.show_verify); with a seeded rand_fr, the sigma'
+     points, J and the commitments of 16 sampled lanes equal the host spec
+     MSMs of the same scalars;
+ 11. show_g2: the same prover on phase 9's G2 credentials, cold and warm,
+     then exact show verify (challenges recomputed) with one show in 8
+     forged four ways and the combined check on the honest batch (1,024
+     true bits, one combined check a call), each cold and warm with its
+     rate beside the G1 show rates of this process;
+ 12. ragged: 16 shows over the revealed sets {2, 3, 4, 5} and {0, 1}, two
+     forged, through ps.batch_show_verify in exact and batched mode: the
+     expected bits from the spec verifier proof by proof, the ragged
+     counters 1 and 16, and no call of the backend.
 
 Each path's first call runs with the kernel's counts set to 0 just before
 it and read just after; the kernel table's `launches` is their sum, and
-`launches_by_path` holds each (g2_verify: the sum of its three paths').
+`launches_by_path` holds each (g2_verify: the sum of its three paths';
+prove: the prover's and its two FS verifies'; show_g2: the prover's and
+its two verifies').
 
-Any failed check raises (non-zero exit). The last line is the JSON result
-{"ok": true, "device": {...}}; the line before it the kernel table.
+Any failed check raises (non-zero exit). After the phases, a `done` line
+gives the script's seconds since start; then the kernel table, and last
+the JSON result {"ok": true, "device": {...}}.
 Needs a CUDA card: without one it exits non-zero before printing results.
 """
 
 import collections
 import json
+import random
 import statistics
 import subprocess
 import sys
@@ -71,12 +98,13 @@ import time
 import numpy as np
 import torch
 
-from coconut_tpu_torch import entry, ps
+from coconut_tpu_torch import entry, pok_sig, ps, sss
 from coconut_tpu_torch import bench_fp_mul as kb
 from coconut_tpu_torch.gpu import cuda_fp
 from coconut_tpu_torch.gpu.backend import TorchBackend
 from coconut_tpu_torch.gpu.limbs import MONT_R
 from coconut_tpu_torch.ops.fields import P, R
+from coconut_tpu_torch.signature import fiat_shamir_challenge
 
 LANES = kb.MAIN_WIDTHS[-1]  # one fp12_mul at B = 1024: 54 base products per lane
 BATCH = kb.BATCH
@@ -161,15 +189,18 @@ def kernel_phase(dev):
 def drive(run, expect):
     """Run a path once cold, with the kernel's counts set to 0 just before
     and read just after, then three times warm. Every run's bits must equal
-    `expect`; the cold run must launch the kernel and never the plain
-    version. Returns the cold call's time and counts and the warm walls."""
+    `expect` (or, if `expect` is a function, pass it); the cold run must
+    launch the kernel and never the plain version. Returns the cold call's
+    time and counts and the warm walls."""
     cuda_fp.LAUNCHES = 0
     cuda_fp.PLAIN_CALLS = 0
     t0 = time.perf_counter()
     bits = run()
     first_s = time.perf_counter() - t0
     launches, plain_calls = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
-    if bits != expect:
+    if callable(expect):
+        expect(bits)
+    elif bits != expect:
         wrong = [i for i, (g, w) in enumerate(zip(bits, expect)) if g != w]
         raise AssertionError("verdicts differ from expected at lanes %s" % wrong[:16])
     if launches == 0 or plain_calls != 0:
@@ -186,7 +217,9 @@ def drive(run, expect):
         again = run()
         walls.append(time.perf_counter() - t0)
         warm_launches = cuda_fp.LAUNCHES - before
-        if again != expect:
+        if callable(expect):
+            expect(again)
+        elif again != expect:
             raise AssertionError("warm verdicts differ from expected")
     return {
         "verdicts_match": True,
@@ -368,7 +401,7 @@ def show_combined_phase(card, be, honest, exact_rate):
         combined_show_verifies_per_s=rate, exact_show_verifies_per_s=exact_rate,
         ratio_to_exact=rate / exact_rate, **ladder, card=card,
     )
-    return res["launches_first_call"]
+    return res["launches_first_call"], rate
 
 
 def _forged_sigma_2(params, sigs, lane):
@@ -456,13 +489,200 @@ def g2_verify_phase(card, g1_rates):
         raw_wire=be.raw_wire, fixture_s=fixture_s, **out,
         g1_verifies_per_s=g1_rates, card=card,
     )
+    return launches, (params, vk, sigs, msgs)
+
+
+def _proofs_valid(params, vk, n):
+    """A check for drive(): the prover's output of n proofs whose every
+    challenge is the one recomputed from the proof's transcript."""
+
+    def check(out):
+        proofs, chals, rms = out
+        if len(proofs) != n or len(rms) != n:
+            raise AssertionError("the prover returned %d proofs" % len(proofs))
+        redo = [fiat_shamir_challenge(p.to_bytes_for_challenge(vk, params)) for p in proofs]
+        if redo != chals:
+            bad = [i for i, (a, b) in enumerate(zip(redo, chals)) if a != b]
+            raise AssertionError("challenges differ from the transcripts' at %s" % bad[:16])
+
+    return check
+
+
+def _seeded_rand_fr(seed):
+    """A rand_fr drawing from random.Random(seed) (for the spec checks)."""
+    rng = random.Random(seed)
+    return lambda: rng.randrange(R)
+
+
+def _spec_lanes(params, vk, sigs, msgs, revealed, be, lanes):
+    """Run the prover with a seeded rand_fr and hold sigma'_1, sigma'_2, J
+    and the commitment of `lanes` against the host spec MSMs of the same
+    scalars (replayed from the same seed)."""
+    seed = 0x5EED
+    pok_sig.rand_fr = _seeded_rand_fr(seed)
+    try:
+        proofs, _, _ = pok_sig.batch_show(sigs, vk, params, msgs, revealed, be)
+        pok_sig.rand_fr = _seeded_rand_fr(seed)
+        rs, ts, blindings = pok_sig.prover_draw(len(sigs), len(vk.Y_tilde) - len(revealed))
+    finally:
+        pok_sig.rand_fr = sss.rand_fr
+    ctx = params.ctx
+    bases = ps.show_bases(vk, params, revealed)
+    hidden = [i for i in range(len(vk.Y_tilde)) if i not in revealed]
+    for i in lanes:
+        s, p = sigs[i], proofs[i]
+        want = (
+            ctx.sig.msm([s.sigma_1], [rs[i]]),
+            ctx.sig.msm([s.sigma_2, s.sigma_1], [rs[i], ts[i] * rs[i] % R]),
+            ctx.other.msm(bases, [ts[i]] + [msgs[i][j] for j in hidden]),
+            ctx.other.msm(bases, blindings[i]),
+        )
+        if (p.sigma_prime_1, p.sigma_prime_2, p.J, p.proof_vc.t) != want:
+            raise AssertionError("lane %d differs from the host spec MSMs" % i)
+    return len(lanes)
+
+
+def prove_phase(card, honest, show_rate):
+    """The batched prover on the main path's credentials, then its proofs
+    through the FS show verify; returns the phase's launches and rates."""
+    params, _, vk, sigs, msgs = honest
+    revealed = set(entry.SHOW_REVEALED)
+    be = TorchBackend()  # cuda, window 9, raw wire
+    made = {}
+
+    def prove():
+        made["out"] = pok_sig.batch_show(sigs, vk, params, msgs, revealed, be)
+        return made["out"]
+
+    res = drive(prove, _proofs_valid(params, vk, BATCH))
+    proofs, _, rms = made["out"]
+    launches = res["launches_first_call"]
+    out = {"prove": dict(res, proofs_per_s=BATCH / res["warm_wall_s"])}
+
+    res = drive(lambda: ps.batch_show_verify(proofs, vk, params, rms, backend=be), [True] * BATCH)
+    launches += res["launches_first_call"]
+    fs_rate = BATCH / res["warm_wall_s"]
+    out["fs_exact"] = dict(res, show_verifies_per_s=fs_rate)
+    res = {"checks_before": be.combined_checks, "final_exps_before": be.final_exps}
+    res.update(drive(
+        lambda: ps.batch_show_verify(proofs, vk, params, rms, backend=be, mode="batched"),
+        [True] * BATCH,
+    ))
+    _one_check_per_call(be, res)
+    launches += res["launches_first_call"]
+    out["fs_batched"] = dict(res, show_verifies_per_s=BATCH / res["warm_wall_s"])
+
+    t0 = time.perf_counter()
+    for p in proofs:
+        fiat_shamir_challenge(p.to_bytes_for_challenge(vk, params))
+    recompute_s = time.perf_counter() - t0
+    fproofs, frms, expect = entry.forge_shows(params, proofs, rms, every=FORGE_EVERY)
+    _quiet(
+        lambda: ps.batch_show_verify(fproofs, vk, params, frms, backend=be), expect,
+        "forged FS show verify",
+    )
+    t0 = time.perf_counter()
+    sample = range(0, BATCH, BATCH // 8)
+    if not all(pok_sig.show_verify(proofs[i], vk, params, rms[i]) for i in sample):
+        raise AssertionError("a sampled proof fails the host spec verifier")
+    spec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nspec = _spec_lanes(params, vk, sigs, msgs, revealed, be, range(7, BATCH, BATCH // 16))
+    log(
+        "prove", batch=BATCH, attrs=entry.MSG_COUNT, revealed=sorted(revealed),
+        window=be.window, **out, forged=expect.count(False), spec_verified_proofs=len(sample),
+        spec_verify_s=spec_s, spec_msm_lanes=nspec, spec_msm_s=time.perf_counter() - t0,
+        challenge_recompute_s=recompute_s, fs_show_verifies_per_s=fs_rate,
+        show_path_show_verifies_per_s=show_rate,
+        fs_ratio_to_show_path=fs_rate / show_rate, card=card,
+    )
+    return launches, out["fs_batched"]["show_verifies_per_s"]
+
+
+def show_g2_phase(card, g2_creds, g1_show_rates):
+    """The prover, exact show verify and the combined check under G2."""
+    params, vk, sigs, msgs = g2_creds
+    revealed = set(entry.SHOW_REVEALED)
+    be = TorchBackend()  # cuda, window 9, raw wire
+    made = {}
+
+    def prove():
+        made["out"] = pok_sig.batch_show(sigs, vk, params, msgs, revealed, be)
+        return made["out"]
+
+    res = drive(prove, _proofs_valid(params, vk, BATCH))
+    proofs, _, rms = made["out"]
+    out = {"prove": dict(res, proofs_per_s=BATCH / res["warm_wall_s"])}
+    fproofs, frms, expect = entry.forge_shows(params, proofs, rms, every=FORGE_EVERY)
+    res = drive(lambda: ps.batch_show_verify(fproofs, vk, params, frms, backend=be), expect)
+    out["exact"] = dict(res, forged=expect.count(False), show_verifies_per_s=BATCH / res["warm_wall_s"])
+    res = {"checks_before": be.combined_checks, "final_exps_before": be.final_exps}
+    res.update(drive(
+        lambda: ps.batch_show_verify(proofs, vk, params, rms, backend=be, mode="batched"),
+        [True] * BATCH,
+    ))
+    _one_check_per_call(be, res)
+    out["combined"] = dict(res, show_verifies_per_s=BATCH / res["warm_wall_s"])
+    launches = 0
+    for name, v in out.items():
+        launches += v["launches_first_call"]
+        if name in g1_show_rates:
+            v["ratio_to_g1"] = v["show_verifies_per_s"] / g1_show_rates[name]
+    log(
+        "show_g2", batch=BATCH, attrs=entry.MSG_COUNT, ctx="G2", revealed=sorted(revealed),
+        window=be.window, **out, g1_show_verifies_per_s=g1_show_rates, card=card,
+    )
     return launches
+
+
+class _NoBackend:
+    """A backend that fails any use: the ragged path must not touch it."""
+
+    def __getattr__(self, name):
+        raise AssertionError("the ragged batch reached the backend (%s)" % name)
+
+
+def ragged_phase(card, honest):
+    """16 shows over two revealed sets, two forged, proof by proof."""
+    params, _, vk, sigs, msgs = honest
+    be = TorchBackend()
+    halves = []
+    for lo, revealed in ((0, set(entry.SHOW_REVEALED)), (8, {0, 1})):
+        proofs, _, rms = pok_sig.batch_show(
+            sigs[lo : lo + 8], vk, params, msgs[lo : lo + 8], revealed, be
+        )
+        # the last show of each set gets a wrong revealed value
+        halves.append(entry.forge_shows(params, proofs, rms, every=8))
+    # interleaved: even lanes reveal {2, 3, 4, 5}, odd ones {0, 1}
+    proofs, rmsgs, expect = (
+        [x for pair in zip(a, b) for x in pair] for a, b in zip(*halves)
+    )
+    out, launches = {}, cuda_fp.LAUNCHES
+    for mode in ("exact", "batched"):
+        ps.COUNTS.clear()
+        t0 = time.perf_counter()
+        bits = ps.batch_show_verify(proofs, vk, params, rmsgs, backend=_NoBackend(), mode=mode)
+        wall = time.perf_counter() - t0
+        counts = dict(ps.COUNTS)
+        if bits != expect:
+            raise AssertionError("ragged %s verdicts %s, expected %s" % (mode, bits, expect))
+        want = {"show_verify_ragged_fallback": 1, "show_verify_ragged_proofs": 16}
+        if counts != want:
+            raise AssertionError("ragged counters read %s" % counts)
+        out[mode] = {"wall_s": wall, "counters": counts}
+    if cuda_fp.LAUNCHES != launches:
+        raise AssertionError("the ragged path launched the kernel")
+    log(
+        "ragged", proofs=len(proofs), revealed_sets=[sorted(entry.SHOW_REVEALED), [0, 1]],
+        forged=[i for i, e in enumerate(expect) if not e], **out, card=card,
+    )
 
 
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
     dev = torch.device("cuda")
+    started = time.perf_counter()
     card = kb.card()
     log(
         "environment", python=sys.version.split()[0], torch=torch.__version__,
@@ -482,11 +702,15 @@ def main():
     by_path["verify"], vbe, vhonest, vrate = main_path_phase(card)
     by_path["show"], sbe, shonest, srate = show_path_phase(card)
     by_path["verify_combined"], crate = verify_combined_phase(card, vbe, vhonest, vrate)
-    by_path["show_combined"] = show_combined_phase(card, sbe, shonest, srate)
+    by_path["show_combined"], scrate = show_combined_phase(card, sbe, shonest, srate)
     by_path["grouped"], grate = grouped_phase(card, vbe, vhonest, vrate)
-    by_path["g2_verify"] = g2_verify_phase(
+    by_path["g2_verify"], g2_creds = g2_verify_phase(
         card, {"exact": vrate, "combined": crate, "grouped": grate}
     )
+    by_path["prove"], _ = prove_phase(card, vhonest, srate)
+    by_path["show_g2"] = show_g2_phase(card, g2_creds, {"exact": srate, "combined": scrate})
+    ragged_phase(card, vhonest)
+    log("done", seconds=time.perf_counter() - started, card=card)
     kern["launches"] = sum(by_path.values())
     kern["launches_by_path"] = by_path
     print(json.dumps({"kernels": [kern]}), flush=True)

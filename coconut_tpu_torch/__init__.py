@@ -3,18 +3,22 @@
 The JAX package (`coconut_tpu/`) is the reference; this package mirrors its
 layout and names and imports nothing from it:
 
-  ops/     host copies of the spec field and curve ops (Python ints)
+  ops/     host copies of the spec: fields (to Fp12), curve ops and MSM,
+           pairing, hashing to Fr, wire encoders (Python ints)
   gpu/     the device layer, module for module after coconut_tpu/tpu/:
            limbs, fp (+ cuda_fp: the CUDA Montgomery kernel and its plain
-           PyTorch version), tower, curve, pairing, backend (TorchBackend)
+           PyTorch version), tower, curve, pairing, glv, backend
+           (TorchBackend)
   csrc/    CUDA C++ sources, built with nvcc into build/ at first use
   params.py, entry.py, convert.py
-           data holders, the verify and show-verify fixtures and the entry
-           point, and the bridge that carries JAX-encoded operands across
-           for differential tests
-  ps.py, batchverify.py, errors.py
-           the protocol layer's batch checks and ladders, their combiners,
-           and the PSError they raise
+           group contexts and data holders, the verify and show-verify
+           fixtures and the entry point, and the bridge that carries
+           JAX-encoded operands across for differential tests
+  ps.py, pok_sig.py, pok_vc.py, signature.py, sss.py, batchverify.py,
+  errors.py
+           the protocol layer: the spec verifiers, the show prover (spec
+           and batched), Fiat-Shamir, the batch checks and ladders, their
+           combiners, and the errors they raise
 
 Entry points run on `cuda` unless the caller passes device="cpu".
 """

@@ -14,10 +14,9 @@ import functools
 import random
 
 from .ops.fields import R
-from .params import (
-    GroupContext, Params, PoKOfSignatureProof, SchnorrProof, SIGNATURES_IN_G1,
-    Sigkey, Signature, Verkey,
-)
+from .params import GroupContext, Params, SIGNATURES_IN_G1, Sigkey, Signature, Verkey
+from .pok_vc import Proof as SchnorrProof
+from .ps import PoKOfSignatureProof
 
 MSG_COUNT = 6  # attributes per credential (BASELINE config 2)
 

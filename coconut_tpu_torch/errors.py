@@ -1,7 +1,8 @@
 """The port's error classes: its own copies of the JAX package's
-`CoconutError` and `PSError` (`coconut_tpu/errors.py`), with the same names
-and the same stable wire codes, so a caller that catches the PS layer's
-refusals by class or by `code` treats both packages alike."""
+`CoconutError`, `UnsupportedNoOfMessages`, `UnequalNoOfBasesExponents` and
+`PSError` (`coconut_tpu/errors.py`), with the same names, messages and
+stable wire codes, so a caller that catches the PS layer's refusals by
+class or by `code` treats both packages alike."""
 
 
 class CoconutError(Exception):
@@ -10,6 +11,33 @@ class CoconutError(Exception):
     override it."""
 
     code = "error"
+
+
+class UnsupportedNoOfMessages(CoconutError):
+    """A verkey valid for `expected` messages given `given`."""
+
+    code = "unsupported_messages"
+
+    def __init__(self, expected, given):
+        super().__init__(
+            "Verkey valid for %d messages but given %d messages" % (expected, given)
+        )
+        self.expected = expected
+        self.given = given
+
+
+class UnequalNoOfBasesExponents(CoconutError):
+    """A Schnorr proof whose bases and exponents differ in number."""
+
+    code = "unequal_bases_exponents"
+
+    def __init__(self, bases, exponents):
+        super().__init__(
+            "Same no of bases and exponents required. %d bases and %d exponents"
+            % (bases, exponents)
+        )
+        self.bases = bases
+        self.exponents = exponents
 
 
 class PSError(CoconutError):

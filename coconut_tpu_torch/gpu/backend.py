@@ -14,6 +14,15 @@ show-verify paths of `coconut_tpu/tpu/backend.py`:
   the hidden Y_tilde, the distinct MSM J^c, one affine compare with the
   commitment t) and J joined to the pairing accumulator.
 
+  The CurveBackend MSM primitives (msm_g{1,2}_shared[_many][_async],
+  msm_g{1,2}_distinct[_async] and their waits), which the batched show
+  prover (`coconut_tpu_torch.pok_sig.batch_show`) runs on: point-returning
+  programs (msm_shared_many_program, msm_distinct_affine_program) whose
+  affine outputs come back as 48 canonical bytes a coordinate
+  (fp.pack_canon48, one carry scan over every coordinate of a program)
+  and are decoded on the host. G1 distinct MSMs split each scalar by GLV
+  (gpu/glv.py, 27 windows instead of 52).
+
   fused_verify_combined / fused_show_verify_combined: the random-linear-
   combination batch check. Each lane's pairing check is raised to a
   128-bit combiner r_i, so the B checks fold into one product of B+1
@@ -30,10 +39,8 @@ its plain PyTorch version on `cpu`. Results are bit-identical to the
 reference (tests/test_torch_verify.py holds them against JaxBackend and
 the spec).
 
-The verify family (exact, combined, grouped) runs under both signature
-assignments: ctx "G1" (signatures in G1, the default) and "G2" (the roles
-of the groups swap). The show family runs "G1"; asks for "G2" raise
-NotImplementedError (a later slice).
+Every path runs under both signature assignments: ctx "G1" (signatures
+in G1, the default) and "G2" (the roles of the groups swap).
 """
 
 import secrets
@@ -47,14 +54,10 @@ from ..ops.curve import g1 as _g1, g2 as _g2
 from ..ops.fields import R
 from . import curve as cv
 from . import fp
+from . import glv
 from . import pairing as pr
 from . import tower as tw
 from .limbs import fp_encode, fr_digits_signed_np
-
-_G2_LATER = (
-    "show verification under the G2 signature assignment is a later slice "
-    "of the port; it verifies shows under ctx 'G1'"
-)
 
 _SIGNED_NWIN = 52  # signed 5-bit windows covering the 255-bit Fr
 
@@ -227,29 +230,28 @@ def fused_show_verify(
     jpt: J as (x, y) coordinate pairs [B] and jinf its identity mask;
     cmag_j/csgn_j: the challenges' signed 5-bit digits [B, 1, 52];
     commx/commy/comminf: the commitment t. The rest as in fused_verify.
-    All proofs share one revealed-index set. Returns bool [B]."""
-    if not sig_is_g1:
-        raise NotImplementedError(_G2_LATER)
+    All proofs share one revealed-index set. Under G2 the Schnorr MSMs, J
+    and the accumulator are over G1. Returns bool [B]."""
+    oth_fl = _fields(sig_is_g1)[1]
     jpt, commx, commy = _pts_f32((jpt, commx, commy))
     schnorr_ok = _schnorr_check(
-        vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j,
+        oth_fl, vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j,
         commx, commy, comminf,
     )
-    acc = _show_accumulator(acc_wtables, acc_mag, acc_sgn, jpt, jinf)
+    acc = _show_accumulator(oth_fl, acc_wtables, acc_mag, acc_sgn, jpt, jinf)
     pair_ok = verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2)
     return schnorr_ok & pair_ok
 
 
 def _schnorr_check(
-    vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j, commx, commy,
+    fl, vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j, commx, commy,
     comminf,
 ):
-    """The Schnorr half of the show programs, per lane: comb MSM over
-    [g_tilde, hidden Y_tilde] plus the distinct MSM J^c, compared in affine
-    form with the commitment t. Points are field elements already
-    (_pts_f32). Its to_affine inversion stays separate from the pairing
-    half's, as in the reference."""
-    fl = cv.FP2
+    """The Schnorr half of the show programs, per lane, over the other
+    group's field `fl`: comb MSM over [g_tilde, hidden Y_tilde] plus the
+    distinct MSM J^c, compared in affine form with the commitment t. Points
+    are field elements already (_pts_f32). Its to_affine inversion stays
+    separate from the pairing half's, as in the reference."""
     vc = cv.msm_shared_comb(fl, vc_wtables, resp_mag, resp_sgn)
     lift = lambda t: t[:, None]
     jterm = cv.msm_distinct_signed(
@@ -262,9 +264,9 @@ def _schnorr_check(
     ) | (linf & comminf)
 
 
-def _show_accumulator(acc_wtables, acc_mag, acc_sgn, jpt, jinf):
-    """J * X_tilde * prod_rev Y_tilde^m: the comb MSM plus one add of J."""
-    fl = cv.FP2
+def _show_accumulator(fl, acc_wtables, acc_mag, acc_sgn, jpt, jinf):
+    """J * X_tilde * prod_rev Y_tilde^m over the other group's field `fl`:
+    the comb MSM plus one add of J."""
     acc = cv.msm_shared_comb(fl, acc_wtables, acc_mag, acc_sgn)
     return cv.jadd(fl, acc, cv.affine_to_jacobian(fl, jpt[0], jpt[1], jinf))
 
@@ -367,15 +369,14 @@ def fused_show_verify_combined(
     masked out of the fold and fail only their own bit. Returns (bits [B]
     = Schnorr ok and not dead, pairing bool []); a lane's verdict is
     bits_i & pairing."""
-    if not sig_is_g1:
-        raise NotImplementedError(_G2_LATER)
+    oth_fl = _fields(sig_is_g1)[1]
     jpt, commx, commy = _pts_f32((jpt, commx, commy))
     s1, s2n, gtx, gty = _pts_f32((s1, s2n, gtx, gty))
     schnorr_ok = _schnorr_check(
-        vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j,
+        oth_fl, vc_wtables, resp_mag, resp_sgn, jpt, jinf, cmag_j, csgn_j,
         commx, commy, comminf,
     )
-    acc = _show_accumulator(acc_wtables, acc_mag, acc_sgn, jpt, jinf)
+    acc = _show_accumulator(oth_fl, acc_wtables, acc_mag, acc_sgn, jpt, jinf)
     pair_ok, dead = _combined_pairing(
         sig_is_g1, acc, s1, s2n, rmag, rsgn, gtx, gty, inf1, inf2
     )
@@ -514,9 +515,69 @@ def fused_verify_grouped(
     return grouped_tail(sig_is_g1, allacc, ox, oy, gtx, gty, (inf1 | inf2).any())
 
 
+def _pack_pts(pts):
+    """(x, y) affine coordinate trees -> the same trees of uint8 [..., 48]
+    canonical digits (fp.pack_canon48), every leaf of every point packed by
+    ONE carry scan. The contract holds for the programs' outputs: G1
+    coordinates are fp.mul outputs (|limb| <= 132, |value| < 0.66p), G2
+    ones 2- and 3-term sums of them (|limb| <= 396, |value| < 1.98p)."""
+    leaves = tw.leaves(pts)
+    rows = [t.reshape(-1, t.shape[-1]) for t in leaves]
+    packed = iter(torch.split(fp.pack_canon48(torch.cat(rows)), [r.shape[0] for r in rows]))
+    return tw.tree_map(lambda t: next(packed).reshape(t.shape[:-1] + (fp.CANON_BYTES,)), pts)
+
+
+def msm_shared_many_program(fl, jobs):
+    """Several shared-base comb MSMs in one program: jobs [(wtables, mag,
+    sgn)] -> [(x, y, inf)] a job, the affine results packed to uint8
+    digits. Jobs over the same tables run as one comb MSM over their
+    stacked lanes, and every job's accumulator shares one to_affine and one
+    pack; each lane's limbs are those of a job alone."""
+    by_tables = {}
+    for n, (wt, _, _) in enumerate(jobs):
+        by_tables.setdefault(id(wt), []).append(n)
+    parts = [None] * len(jobs)
+    for idxs in by_tables.values():
+        wt = jobs[idxs[0]][0]
+        mag = torch.cat([jobs[n][1] for n in idxs])
+        sgn = torch.cat([jobs[n][2] for n in idxs])
+        acc = cv.msm_shared_comb(fl, wt, mag, sgn)
+        off = 0
+        for n in idxs:
+            size = jobs[n][1].shape[0]
+            parts[n] = tw.tree_map(lambda t: t[off : off + size], acc)
+            off += size
+    acc = tw.tree_map(lambda *ts: torch.cat(ts), *parts)
+    x, y, inf = cv.to_affine(fl, acc)
+    x, y = _pack_pts((x, y))
+    outs, off = [], 0
+    for _, mag, _ in jobs:
+        size = mag.shape[0]
+        outs.append(tw.tree_map(lambda t: t[off : off + size], (x, y, inf)))
+        off += size
+    return outs
+
+
+def msm_distinct_affine_program(fl, x, y, inf, mag, sgn):
+    """Distinct-base MSM program: per-row points x, y, inf [B, k] (wire or
+    field limbs), signed 5-bit digits mag/sgn [B, k, nwin] -> (x, y, inf)
+    [B], the affine results packed to uint8 digits (Horner schedule,
+    curve.msm_distinct_signed)."""
+    x, y = _pts_f32((x, y))
+    acc = cv.msm_distinct_signed(fl, x, y, inf, mag, sgn)
+    ax, ay, ainf = cv.to_affine(fl, acc)
+    return _pack_pts((ax, ay)) + (ainf,)
+
+
+def _decode_points(x, y, inf):
+    """A program's packed affine output -> spec points (None = identity)."""
+    xs, ys = tw.decode_batch(x), tw.decode_batch(y)
+    return [None if i else (xv, yv) for xv, yv, i in zip(xs, ys, inf.cpu().tolist())]
+
+
 class TorchBackend:
-    """Batched PyTorch/CUDA backend with the verify and show-verify surface
-    of JaxBackend.
+    """Batched PyTorch/CUDA backend with the verify, show-verify and
+    CurveBackend MSM surface of JaxBackend.
 
     Reads its inputs by duck typing: sig.sigma_1 / sig.sigma_2 (affine int
     tuples or None), the proof fields of encode_show_verify_batch,
@@ -692,9 +753,10 @@ class TorchBackend:
         Reads proofs by duck typing: p.sigma_prime_1, p.sigma_prime_2, p.J,
         p.proof_vc.t, p.proof_vc.responses, p.revealed_msg_indices; the
         revealed set is proofs[0]'s. revealed_msgs_list holds one
-        {index: message} map per proof."""
-        if params.ctx.name != "G1":
-            raise NotImplementedError(_G2_LATER)
+        {index: message} map per proof. J, t and the comb tables are in the
+        other group of params.ctx: G2 under "G1", G1 under "G2"."""
+        is_g1 = params.ctx.name == "G1"
+        enc_other = self._encode_g2_points if is_g1 else self._encode_g1_points
         shown = proofs[0].revealed_msg_indices
         revealed = sorted(shown)
         hidden = [i for i in range(len(vk.Y_tilde)) if i not in shown]
@@ -703,8 +765,8 @@ class TorchBackend:
             vc_bases = [params.g_tilde] + [vk.Y_tilde[i] for i in hidden]
             acc_bases = [vk.X_tilde] + [vk.Y_tilde[i] for i in revealed]
             return (
-                self._comb_tables(True, vc_bases),
-                self._comb_tables(True, acc_bases),
+                self._comb_tables(is_g1, vc_bases),
+                self._comb_tables(is_g1, acc_bases),
             ) + self._encode_gt(params)
 
         vc_wtables, acc_wtables, gtx, gty = self._static_operands(
@@ -715,11 +777,9 @@ class TorchBackend:
         resp_mag, resp_sgn = self._comb_digits(
             [[r % R for r in p.proof_vc.responses] for p in proofs]
         )
-        jpt, jinf = self._encode_g2_points([p.J for p in proofs])
+        jpt, jinf = enc_other([p.J for p in proofs])
         cmag_j, csgn_j = _signed_digits([[c % R] for c in challenges], self.device)
-        (commx, commy), comminf = self._encode_g2_points(
-            [p.proof_vc.t for p in proofs]
-        )
+        (commx, commy), comminf = enc_other([p.proof_vc.t for p in proofs])
 
         # pairing operands
         acc_mag, acc_sgn = self._comb_digits(
@@ -756,6 +816,91 @@ class TorchBackend:
         return self.batch_show_verify_async(
             proofs, vk, params, revealed_msgs_list, challenges
         )()
+
+    # -- CurveBackend MSM primitives ----------------------------------------
+
+    def _msm_shared_many_dispatch(self, is_fp2, jobs):
+        """Encode and enqueue the shared-base MSMs of `jobs` [(bases [k],
+        scalars [B][k])] as ONE program (the comb tables from the LRU, so
+        the prover's tables over [g_tilde, hidden Y_tilde] are the
+        verifier's Schnorr tables); returns its handle without waiting."""
+        operands = [
+            (self._comb_tables(is_fp2, bases),) + self._comb_digits(scalars_batch)
+            for bases, scalars_batch in jobs
+        ]
+        return msm_shared_many_program(cv.FP2 if is_fp2 else cv.FP, operands)
+
+    @staticmethod
+    def msm_shared_many_wait(handle):
+        """Wait for a shared-many handle -> one list of spec points a job."""
+        return [_decode_points(*out) for out in handle]
+
+    def msm_g1_shared_many_async(self, jobs):
+        return self._msm_shared_many_dispatch(False, jobs)
+
+    def msm_g2_shared_many_async(self, jobs):
+        return self._msm_shared_many_dispatch(True, jobs)
+
+    def msm_g1_shared_many(self, jobs):
+        """jobs [(bases, scalars_batch)] -> per-job lists of G1 points."""
+        return self.msm_shared_many_wait(self.msm_g1_shared_many_async(jobs))
+
+    def msm_g2_shared_many(self, jobs):
+        return self.msm_shared_many_wait(self.msm_g2_shared_many_async(jobs))
+
+    def msm_g1_shared(self, bases, scalars_batch):
+        """sum_j scalars[i][j] * bases[j] in G1 for each row i -> [B]
+        affine points (None = identity)."""
+        return self.msm_g1_shared_many([(bases, scalars_batch)])[0]
+
+    def msm_g2_shared(self, bases, scalars_batch):
+        return self.msm_g2_shared_many([(bases, scalars_batch)])[0]
+
+    def _encode_distinct(self, is_fp2, points_batch, scalars_batch):
+        """Distinct-MSM operands (x, y, inf [B, k'], mag, sgn [B, k', nwin]).
+        G1 splits each scalar by GLV over (P, phi(P)) (k' = 2k, 27 windows
+        over the 128-bit halves; the points must lie in the r-order
+        subgroup); G2 runs 52 windows over Fr (k' = k)."""
+        B = len(points_batch)
+        k = len(points_batch[0])
+        if any(len(row) != k for row in points_batch):
+            raise ValueError("ragged distinct-MSM batch")
+        if is_fp2:
+            bits = 255
+        else:
+            points_batch = [[q for p in row for q in (p, glv.phi(p))] for row in points_batch]
+            scalars_batch = [[h for s in row for h in glv.decompose(s)] for row in scalars_batch]
+            k *= 2
+            bits = glv.HALF_BITS
+        flat = [p for row in points_batch for p in row]
+        enc = self._encode_g2_points if is_fp2 else self._encode_g1_points
+        (x, y), inf = enc(flat)
+        x, y = tw.tree_map(lambda t: t.reshape((B, k) + t.shape[1:]), (x, y))
+        mag, sgn = _signed_digits(scalars_batch, self.device, nwin=-(-bits // 5) + 1)
+        return x, y, inf.reshape(B, k), mag, sgn
+
+    def _msm_distinct_dispatch(self, is_fp2, points_batch, scalars_batch):
+        ops = self._encode_distinct(is_fp2, points_batch, scalars_batch)
+        return msm_distinct_affine_program(cv.FP2 if is_fp2 else cv.FP, *ops)
+
+    @staticmethod
+    def msm_distinct_wait(handle):
+        """Wait for a distinct-MSM handle -> [B] spec points."""
+        return _decode_points(*handle)
+
+    def msm_g1_distinct_async(self, points_batch, scalars_batch):
+        return self._msm_distinct_dispatch(False, points_batch, scalars_batch)
+
+    def msm_g2_distinct_async(self, points_batch, scalars_batch):
+        return self._msm_distinct_dispatch(True, points_batch, scalars_batch)
+
+    def msm_g1_distinct(self, points_batch, scalars_batch):
+        """sum_j scalars[i][j] * points[i][j] in G1 per row i (rows of one
+        length) -> [B] affine points."""
+        return self.msm_distinct_wait(self.msm_g1_distinct_async(points_batch, scalars_batch))
+
+    def msm_g2_distinct(self, points_batch, scalars_batch):
+        return self.msm_distinct_wait(self.msm_g2_distinct_async(points_batch, scalars_batch))
 
     # -- combined (RLC) checks ----------------------------------------------
 

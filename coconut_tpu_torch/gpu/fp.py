@@ -193,3 +193,45 @@ def mul_stack(lhs_list, rhs_list):
     Rv = torch.stack(torch.broadcast_tensors(*rhs_list), dim=-2)
     out = mul(L, Rv)
     return list(out.unbind(dim=-2))
+
+
+# --- canonical byte packing (the readback of point-returning programs) -----
+
+_BASE = 256.0
+_INV_BASE = 1.0 / 256.0
+# 2p < 2^383: digits 48.. of any value + 2p below 4p are zero
+assert 2 * P < 1 << 383
+CANON_BYTES = 48
+_TWO_P_DIGITS = [float(((2 * P) >> (8 * i)) & 0xFF) for i in range(NLIMBS)]
+
+
+@functools.lru_cache(maxsize=None)
+def _two_p(device):
+    return torch.tensor(_TWO_P_DIGITS, dtype=torch.float32, device=device)
+
+
+def pack_canon48(t):
+    """f32 [..., 52] lazy limbs with |value| < 2p and |limbs| <= ~400 ->
+    uint8 [..., 48] base-256 digits of (value + 2p), a canonical-width
+    representative of value mod p: 48 bytes an Fp element on the readback
+    instead of 208. Adding 2p's digits keeps every limb in [-400, 655]; the
+    sequential floor-carry scan gives the exact digits of the nonnegative
+    v + 2p < 2^383, whose digits 48..51 are zero and dropped. Every
+    intermediate is an exact small float32 integer. The host inverse is
+    limbs.fp_decode_batch's uint8 path."""
+    return _canon_digits(t)[..., :CANON_BYTES].to(torch.uint8)
+
+
+def _canon_digits(t):
+    """Exact base-256 digits of (value + 2p), [..., 52]: 52 steps of a
+    floor carry, limb 0 first (floor semantics, so a negative limb borrows
+    from the next). Stack every coordinate a program returns into one call:
+    the scan's launches do not grow with the width."""
+    v = t + _two_p(t.device)
+    digits = torch.empty_like(v)
+    c = torch.zeros_like(v[..., 0])
+    for i in range(NLIMBS):
+        s = v[..., i] + c
+        c = torch.floor(s * _INV_BASE)
+        digits[..., i] = s - c * _BASE
+    return digits

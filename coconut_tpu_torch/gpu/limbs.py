@@ -84,12 +84,26 @@ def fp_encode_raw_batch(xs):
 
 
 def fp_decode_batch(arr):
-    """Montgomery signed limb vectors [..., NLIMBS] (any float/int dtype)
-    -> flat list of canonical ints. Limbs are pre-combined into 48-bit
-    chunks in int64 numpy (exact for |limb| <= ~400: a 6-limb chunk is
-    < 6 * 400 * 2^40 < 2^52), leaving ~9 Python big-int ops per element."""
+    """Montgomery device output -> flat list of canonical ints, by dtype:
+
+      - uint8 [..., 48]: base-256 digits of (value + 2p) from
+        fp.pack_canon48 (the packed readback), int.from_bytes an element,
+        then the Montgomery divide mod p;
+      - any float/int [..., NLIMBS]: signed limb vectors, pre-combined into
+        48-bit chunks in int64 numpy (exact for |limb| <= ~400: a 6-limb
+        chunk is < 6 * 400 * 2^40 < 2^52), leaving ~9 Python big-int ops
+        an element."""
     rinv = pow(MONT_R, -1, P)
-    a = np.asarray(arr).astype(np.float64)
+    a0 = np.asarray(arr)
+    if a0.dtype == np.uint8:
+        flat = np.ascontiguousarray(a0.reshape(-1, a0.shape[-1]))
+        nb = flat.shape[1]
+        buf = flat.tobytes()
+        return [
+            int.from_bytes(buf[i * nb : (i + 1) * nb], "little") * rinv % P
+            for i in range(flat.shape[0])
+        ]
+    a = a0.astype(np.float64)
     flat = a.reshape(-1, a.shape[-1]).round().astype(np.int64)
     n, nl = flat.shape
     nchunk = -(-nl // 6)

@@ -10,6 +10,7 @@ internally the ops use Jacobian coordinates (X, Y, Z), Z == 0 for infinity.
 """
 
 from .fields import (
+    R,
     fp_add,
     fp_inv,
     fp_mul,
@@ -152,6 +153,35 @@ class CurveOps:
             acc = self.jdouble(acc)
             if bit == "1":
                 acc = self.jadd(acc, base)
+        return self.to_affine(acc)
+
+    def msm(self, points, scalars):
+        """sum_i scalars[i] * points[i]: 4-bit windowed Straus over all
+        points at once, scalars reduced mod r."""
+        if len(points) != len(scalars):
+            raise ValueError(
+                "bases/exponents length mismatch: %d vs %d"
+                % (len(points), len(scalars))
+            )
+        acc = (self.one, self.one, self.zero)
+        js = [self.to_jacobian(pt) for pt in points]
+        # tables [0..15]*p
+        tables = []
+        for j in js:
+            tbl = [(self.one, self.one, self.zero)]
+            for _ in range(15):
+                tbl.append(self.jadd(tbl[-1], j))
+            tables.append(tbl)
+        ks = [k % R for k in scalars]
+        nbits = max((k.bit_length() for k in ks), default=0)
+        nwin = (nbits + 3) // 4
+        for w in range(nwin - 1, -1, -1):
+            for _ in range(4):
+                acc = self.jdouble(acc)
+            for tbl, k in zip(tables, ks):
+                d = (k >> (4 * w)) & 0xF
+                if d:
+                    acc = self.jadd(acc, tbl[d])
         return self.to_affine(acc)
 
 

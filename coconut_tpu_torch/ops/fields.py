@@ -1,12 +1,15 @@
 """BLS12-381 field arithmetic on Python ints — the port's host copy of the
-pure-Python spec (`coconut_tpu/ops/fields.py`), cut to what the verify
-slice needs: the curve constants, Fp and Fp2 arithmetic for the host curve
-ops, and the Frobenius coefficients the device tower encodes.
+pure-Python spec (`coconut_tpu/ops/fields.py`): the curve constants, Fp
+and Fp2 arithmetic for the host curve ops, the Fp6/Fp12 tower and the
+Frobenius maps of the host spec pairing (`ops/pairing.py`), and the
+Frobenius coefficients the device tower encodes.
 
 Representation (identical to the spec, so decoded device results compare
 with it directly):
   - Fp  elements: int in [0, P)
   - Fp2 elements: tuple (c0, c1) meaning c0 + c1*u, u^2 = -1
+  - Fp6 elements: tuple (c0, c1, c2) of Fp2, v^3 = xi = u+1
+  - Fp12 elements: tuple (c0, c1) of Fp6, w^2 = v
 """
 
 # --- Curve constants -------------------------------------------------------
@@ -84,6 +87,10 @@ def fp2_sq(a):
     return ((a0 + a1) * (a0 - a1) % P, 2 * a0 * a1 % P)
 
 
+def fp2_mul_fp(a, s):
+    return (a[0] * s % P, a[1] * s % P)
+
+
 def fp2_conj(a):
     return (a[0], (-a[1]) % P)
 
@@ -118,3 +125,145 @@ def fp2_pow(a, e):
 _GAMMA1 = [fp2_pow(fp2_mul_xi(FP2_ONE), i * (P - 1) // 6) for i in range(6)]
 # gamma2[i] = gamma1[i] * conj(gamma1[i]), the Frobenius^2 coefficients
 _GAMMA2 = [fp2_mul(_GAMMA1[i], fp2_conj(_GAMMA1[i])) for i in range(6)]
+
+
+# --- Fp6 = Fp2[v]/(v^3 - xi), xi = u+1 -------------------------------------
+
+FP6_ZERO = (FP2_ZERO, FP2_ZERO, FP2_ZERO)
+FP6_ONE = (FP2_ONE, FP2_ZERO, FP2_ZERO)
+
+
+def fp6_add(a, b):
+    return (fp2_add(a[0], b[0]), fp2_add(a[1], b[1]), fp2_add(a[2], b[2]))
+
+
+def fp6_sub(a, b):
+    return (fp2_sub(a[0], b[0]), fp2_sub(a[1], b[1]), fp2_sub(a[2], b[2]))
+
+
+def fp6_neg(a):
+    return (fp2_neg(a[0]), fp2_neg(a[1]), fp2_neg(a[2]))
+
+
+def fp6_mul(a, b):
+    a0, a1, a2 = a
+    b0, b1, b2 = b
+    t0 = fp2_mul(a0, b0)
+    t1 = fp2_mul(a1, b1)
+    t2 = fp2_mul(a2, b2)
+    # c0 = t0 + xi*((a1+a2)(b1+b2) - t1 - t2)
+    c0 = fp2_add(
+        t0,
+        fp2_mul_xi(fp2_sub(fp2_sub(fp2_mul(fp2_add(a1, a2), fp2_add(b1, b2)), t1), t2)),
+    )
+    # c1 = (a0+a1)(b0+b1) - t0 - t1 + xi*t2
+    c1 = fp2_add(
+        fp2_sub(fp2_sub(fp2_mul(fp2_add(a0, a1), fp2_add(b0, b1)), t0), t1),
+        fp2_mul_xi(t2),
+    )
+    # c2 = (a0+a2)(b0+b2) - t0 - t2 + t1
+    c2 = fp2_add(
+        fp2_sub(fp2_sub(fp2_mul(fp2_add(a0, a2), fp2_add(b0, b2)), t0), t2), t1
+    )
+    return (c0, c1, c2)
+
+
+def fp6_sq(a):
+    return fp6_mul(a, a)
+
+
+def fp6_mul_by_v(a):
+    """Multiply by v: (a0 + a1 v + a2 v^2) * v = xi*a2 + a0 v + a1 v^2."""
+    return (fp2_mul_xi(a[2]), a[0], a[1])
+
+
+def fp6_inv(a):
+    a0, a1, a2 = a
+    c0 = fp2_sub(fp2_sq(a0), fp2_mul_xi(fp2_mul(a1, a2)))
+    c1 = fp2_sub(fp2_mul_xi(fp2_sq(a2)), fp2_mul(a0, a1))
+    c2 = fp2_sub(fp2_sq(a1), fp2_mul(a0, a2))
+    t = fp2_add(
+        fp2_mul_xi(fp2_add(fp2_mul(a2, c1), fp2_mul(a1, c2))), fp2_mul(a0, c0)
+    )
+    tinv = fp2_inv(t)
+    return (fp2_mul(c0, tinv), fp2_mul(c1, tinv), fp2_mul(c2, tinv))
+
+
+# --- Fp12 = Fp6[w]/(w^2 - v) -----------------------------------------------
+
+FP12_ONE = (FP6_ONE, FP6_ZERO)
+
+
+def fp12_mul(a, b):
+    a0, a1 = a
+    b0, b1 = b
+    t0 = fp6_mul(a0, b0)
+    t1 = fp6_mul(a1, b1)
+    c0 = fp6_add(t0, fp6_mul_by_v(t1))
+    # (a0+a1)(b0+b1) - t0 - t1
+    c1 = fp6_sub(fp6_sub(fp6_mul(fp6_add(a0, a1), fp6_add(b0, b1)), t0), t1)
+    return (c0, c1)
+
+
+def fp12_sq(a):
+    a0, a1 = a
+    # Complex squaring: c0 = (a0+a1)(a0+v*a1) - t - v*t ; c1 = 2t, t = a0*a1
+    t = fp6_mul(a0, a1)
+    c0 = fp6_sub(
+        fp6_sub(fp6_mul(fp6_add(a0, a1), fp6_add(a0, fp6_mul_by_v(a1))), t),
+        fp6_mul_by_v(t),
+    )
+    c1 = fp6_add(t, t)
+    return (c0, c1)
+
+
+def fp12_conj(a):
+    """Conjugation = Frobenius^6: a0 - a1 w. For f in the cyclotomic subgroup
+    this is f^{-1}."""
+    return (a[0], fp6_neg(a[1]))
+
+
+def fp12_inv(a):
+    a0, a1 = a
+    t = fp6_sub(fp6_sq(a0), fp6_mul_by_v(fp6_sq(a1)))
+    tinv = fp6_inv(t)
+    return (fp6_mul(a0, tinv), fp6_neg(fp6_mul(a1, tinv)))
+
+
+# --- Frobenius endomorphism on Fp6/Fp12 ------------------------------------
+
+
+def fp6_frobenius(a):
+    """(a0 + a1 v + a2 v^2) -> conj(a0) + conj(a1)*g1[2]*v + conj(a2)*g1[4]*v^2"""
+    return (
+        fp2_conj(a[0]),
+        fp2_mul(fp2_conj(a[1]), _GAMMA1[2]),
+        fp2_mul(fp2_conj(a[2]), _GAMMA1[4]),
+    )
+
+
+def fp12_frobenius(a):
+    a0, a1 = a
+    b0 = fp6_frobenius(a0)
+    # w-part: conj(d_i) * gamma1[2i+1]  (pi(v^i w) = gamma1[2i+1] v^i w)
+    b1 = (
+        fp2_mul(fp2_conj(a1[0]), _GAMMA1[1]),
+        fp2_mul(fp2_conj(a1[1]), _GAMMA1[3]),
+        fp2_mul(fp2_conj(a1[2]), _GAMMA1[5]),
+    )
+    return (b0, b1)
+
+
+def fp12_frobenius2(a):
+    a0, a1 = a
+    b0 = (
+        a0[0],
+        fp2_mul(a0[1], _GAMMA2[2]),
+        fp2_mul(a0[2], _GAMMA2[4]),
+    )
+    b1 = (
+        fp2_mul(a1[0], _GAMMA2[1]),
+        fp2_mul(a1[1], _GAMMA2[3]),
+        fp2_mul(a1[2], _GAMMA2[5]),
+    )
+    return (b0, b1)

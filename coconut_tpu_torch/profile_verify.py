@@ -1,15 +1,17 @@
 """Where the time of one batched verify or show verify goes, on the GPU.
 
     python3 -m coconut_tpu_torch.profile_verify
-        [--path verify|show|verify_combined|show_combined|grouped]
+        [--path verify|show|verify_combined|show_combined|grouped|prove]
         [--batch 1024] [--out FILE]
 
 Builds the path's entry fixture (B credentials, 6 attributes, one lane in 8
 forged; for `show`, shows revealing attributes {2, 3, 4, 5}; the combined
 paths take the honest fixture, all lanes true, through ps.batch_verify /
 ps.batch_show_verify in mode "batched"; `grouped` the honest fixture
-through TorchBackend.batch_verify_grouped, one bool), warms TorchBackend up
-once, then measures a warm batch three ways:
+through TorchBackend.batch_verify_grouped, one bool; `prove` the honest
+fixture through pok_sig.batch_show, revealing {2, 3, 4, 5}, its proofs
+checked by the spec verifier on 4 lanes), warms TorchBackend up once, then
+measures a warm batch three ways:
 
   stages    host wall time (synchronized) and kernel launches of each stage
             of the path: for `verify` host encode, comb MSM, affine
@@ -29,8 +31,13 @@ once, then measures a warm batch three ways:
             table build, the gather and fold over B, and the Horner pass,
             then the affine of the q+2 accumulators, the Miller loop over
             q+2 pairs, the fold of the Fp12 values, ONE final
-            exponentiation and the test; and the field kernel's launches of
-            that batch by width (lanes);
+            exponentiation and the test; for `prove` the host draw and
+            encode (the GLV split of the sigma scalars, the comb digits),
+            the distinct MSM over G1 ([2B, 4] rows, 27 windows), the two
+            comb MSMs over G2 (stacked into one), the affines of both, the
+            pack of every coordinate (one carry scan), the decode, and
+            Fiat-Shamir with the responses; and the field kernel's
+            launches of that batch by width (lanes);
   profile   torch.profiler over one warm batch: device time by kernel name,
             the field kernel's device time and launches, total device-busy
             time, and the device's idle share of the wall time;
@@ -47,15 +54,15 @@ import time
 
 import torch
 
-from . import entry, ps
+from . import entry, pok_sig, ps
 from .batchverify import derive_combiners, show_transcript, verify_transcript
 from .gpu import cuda_fp
 from .gpu import curve as cv
 from .gpu import pairing as pr
 from .gpu import tower as tw
 from .gpu.backend import (
-    _G_ENTRIES, TorchBackend, _combiner_digits, _grouped_horner, _grouped_tail_miller,
-    _grouped_window_sums, _pts_f32, _tree_fold_fp12,
+    _G_ENTRIES, TorchBackend, _combiner_digits, _decode_points, _grouped_horner,
+    _grouped_tail_miller, _grouped_window_sums, _pack_pts, _pts_f32, _tree_fold_fp12,
 )
 
 
@@ -246,6 +253,46 @@ def grouped_stages(be, sigs, msgs, vk, params):
     return [ok], out
 
 
+def prove_stages(be, sigs, msgs, vk, params, revealed):
+    """The batched prover's stages under G1 (pok_sig.batch_show over
+    msm_distinct_affine_program and msm_shared_many_program), one after
+    another, each timed to a device synchronize. Returns (proofs, stages)."""
+    out = {}
+    B = len(sigs)
+
+    def encode():
+        draw = pok_sig.prover_draw(B, len(vk.Y_tilde) - len(revealed))
+        rows, scal, jobs = pok_sig.msm_inputs(sigs, vk, params, msgs, revealed, draw)
+        dist = be._encode_distinct(False, rows, scal)
+        wt = be._comb_tables(True, jobs[0][0])
+        digits = be._comb_digits(jobs[0][1] + jobs[1][1])
+        return draw, jobs, dist, wt, digits
+
+    (draw, jobs, dist, wt, (mag, sgn)), out["encode"] = _stage(encode)
+    x, y, inf, dmag, dsgn = dist
+    sacc, out["distinct_msm"] = _stage(
+        lambda: cv.msm_distinct_signed(cv.FP, *_pts_f32((x, y)), inf, dmag, dsgn)
+    )
+    cacc, out["comb_msms"] = _stage(lambda: cv.msm_shared_comb(cv.FP2, wt, mag, sgn))
+    (saff, caff), out["affines"] = _stage(
+        lambda: (cv.to_affine(cv.FP, sacc), cv.to_affine(cv.FP2, cacc))
+    )
+    packed, out["pack"] = _stage(lambda: _pack_pts((saff[:2], caff[:2])))
+
+    def decode():
+        sig_out = _decode_points(*packed[0], saff[2])
+        comb = _decode_points(*packed[1], caff[2])
+        return sig_out[:B], sig_out[B:], comb[:B], comb[B:]
+
+    (s1p, s2p, Js, comms), out["decode"] = _stage(decode)
+    res, out["fiat_shamir_responses"] = _stage(
+        lambda: pok_sig.finish_proofs(
+            params, jobs[0][0], s1p, s2p, Js, comms, draw, msgs, set(revealed)
+        )
+    )
+    return res[0], out
+
+
 def _schnorr_stages(out, ops):
     """The show programs' Schnorr stages and the pairing accumulator, into
     `out`. Returns (Schnorr bits [B], the accumulator)."""
@@ -344,7 +391,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--path",
-        choices=("verify", "show", "verify_combined", "show_combined", "grouped"),
+        choices=("verify", "show", "verify_combined", "show_combined", "grouped", "prove"),
         default="verify",
     )
     ap.add_argument("--batch", type=int, default=1024)
@@ -354,10 +401,29 @@ def main(argv=None):
         raise SystemExit("profile_verify: no CUDA device available")
 
     be = TorchBackend()
+    timed = None
     combined = args.path.endswith("_combined")
     if combined and args.batch & (args.batch - 1):
         raise SystemExit("profile_verify: the combined paths take a power-of-two batch")
-    if args.path == "grouped":
+    if args.path == "prove":
+        params, _, vk, sigs, msgs = entry.fixture(args.batch)
+        revealed = set(entry.SHOW_REVEALED)
+        expect = [True] * 4
+
+        def spec_check(proofs, rms):
+            return [pok_sig.show_verify(p, vk, params, rm) for p, rm in zip(proofs[:4], rms[:4])]
+
+        def timed():  # the profiled batch: the prover alone
+            return pok_sig.batch_show(sigs, vk, params, msgs, revealed, be)
+
+        def run():
+            proofs, _, rms = timed()
+            return spec_check(proofs, rms)
+
+        def staged():
+            proofs, st = prove_stages(be, sigs, msgs, vk, params, revealed)
+            return spec_check(proofs, [{j: m[j] for j in revealed} for m in msgs]), st
+    elif args.path == "grouped":
         params, _, vk, sigs, msgs = entry.fixture(args.batch)
         expect = [True]
         run = lambda: [be.batch_verify_grouped(sigs, msgs, vk, params)]
@@ -403,7 +469,7 @@ def main(argv=None):
         "stages_total_s": sum(v["s"] for v in st.values()),
         "stages_launches": sum(v["launches"] for v in st.values()),
         "launch_widths": widths,
-        "profile": profile(run),
+        "profile": profile(timed or run),
         "card": card,
     }
     text = json.dumps(result)

@@ -46,7 +46,9 @@ from coconut_tpu_torch.gpu.backend import (
 )
 from coconut_tpu_torch.ops import serialize as ser
 from coconut_tpu_torch.ops.fields import R
-from coconut_tpu_torch.params import PoKOfSignatureProof, SchnorrProof, Signature
+from coconut_tpu_torch.params import Signature
+from coconut_tpu_torch.pok_vc import Proof as SchnorrProof
+from coconut_tpu_torch.ps import PoKOfSignatureProof
 
 CPU = torch.device("cpu")
 RS = [0x1D5, (1 << 128) - 1, 0xC0FFEE << 90, 7]  # pinned combiners, < 2^128
@@ -448,9 +450,7 @@ def test_show_ladder_names_the_forged_lanes(case):
 
 def test_ladder_edges_and_validation():
     """Where coconut_tpu.ps raises PSError, the port raises its own PSError
-    (coconut_tpu_torch.errors), of the same name and wire code; the
-    mixed revealed-index set, which the reference verifies proof by proof,
-    is the port's ValueError."""
+    (coconut_tpu_torch.errors), of the same name and wire code."""
     stub = _Stub([])
     assert ps.batch_verify([], [], "vk", "params", stub, mode="batched") == []
     assert ps.batch_show_verify([], "vk", "params", [], [], stub, mode="batched") == []
@@ -466,11 +466,29 @@ def test_ladder_edges_and_validation():
         ps.batch_show_verify(proofs, "vk", "params", rmsgs, chals[:1], stub)
     with pytest.raises(PSError, match="batch size"):
         ps.batch_show_verify(proofs, "vk", "params", rmsgs[:1], chals, stub)
+    with pytest.raises(PSError, match="requires a backend"):
+        ps.batch_show_verify(proofs, "vk", "params", rmsgs, chals, ps.SPEC, mode="batched")
     proofs[1].revealed_msg_indices = {3}
     with pytest.raises(PSError, match="do not match"):
         ps.batch_show_verify(proofs, "vk", "params", rmsgs, chals, stub)
-    with pytest.raises(ValueError, match="mixes revealed-index sets"):
-        ps.batch_show_verify(proofs, "vk", "params", [{2: 0}, {3: 0}], chals, stub)
+
+
+def test_mixed_revealed_sets_go_proof_by_proof():
+    """A batch that mixes revealed-index sets goes proof by proof, never to
+    the backend, with the reference's bits and ragged counts, in both
+    modes."""
+    stub = _Stub([])
+    proofs, _, chals = _show_lanes([True, True])
+    proofs[1].revealed_msg_indices = {3}
+    for mode in ("exact", "batched"):
+        ps.COUNTS.clear()
+        got = ps.batch_show_verify(proofs, "vk", "params", [{2: 0}, {3: 0}], chals, stub, mode)
+        want = jps.batch_show_verify(
+            proofs, "vk", "params", [{2: 0}, {3: 0}], chals, backend=stub, mode=mode
+        )
+        assert got == want == [True, True]
+        assert dict(ps.COUNTS) == {"show_verify_ragged_fallback": 1, "show_verify_ragged_proofs": 2}
+    assert stub.calls == [] and stub.exact == []
 
 
 def test_ps_error_matches_the_reference():

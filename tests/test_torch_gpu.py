@@ -1,7 +1,7 @@
 """Card-only tests of the port: the CUDA Montgomery kernel against its plain
 PyTorch version on the GPU, the wrapper's checks, and the verify,
-show-verify, combined and grouped paths (the verify family under both
-signature assignments) on `cuda` against the same paths on the CPU.
+show-verify, combined and grouped paths, the show prover and the show
+family under G2 on `cuda` against the same paths on the CPU.
 
 Marked `gpu`; each test skips where no CUDA card is present. On a machine
 with one: `python -m pytest tests/test_torch_gpu.py -q`. Tolerance: exact
@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from coconut_tpu_torch import entry
+from coconut_tpu_torch import entry, pok_sig, ps
 from coconut_tpu_torch.gpu import cuda_fp, fp
 from coconut_tpu_torch.gpu.backend import TorchBackend
 from coconut_tpu_torch.gpu.limbs import NLIMBS
+from torch_show_helpers import fields_of, seeded_randbelow
 
 pytestmark = pytest.mark.gpu
 
@@ -204,3 +205,42 @@ def test_g2_verify_family_on_cuda(cuda):
     assert cuda_fp.LAUNCHES > launches and cuda_fp.PLAIN_CALLS == plain
     assert (be.combined_checks, be.grouped_checks) == (2, 2)
     assert TorchBackend(device="cpu").batch_verify(fsigs, fmsgs, vk, params) == expect
+
+
+def test_batch_show_on_cuda_matches_cpu(cuda, monkeypatch):
+    """B = 64 under G1: the batched prover on the card (window 9, raw wire;
+    the kernel launched, the plain version never) and on the CPU (window 6,
+    int16 wire) with one seeded rand_fr sequence give the same proofs,
+    challenges and revealed maps, proof for proof; the card verifies them
+    with the challenges recomputed."""
+    params, _, vk, sigs, msgs = entry.fixture(64)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        seeded_randbelow(monkeypatch, 64)
+        be = TorchBackend(device=dev)
+        launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+        proofs, chals, rms = pok_sig.batch_show(sigs, vk, params, msgs, entry.SHOW_REVEALED, be)
+        if dev == "cuda":
+            assert cuda_fp.LAUNCHES > launches and cuda_fp.PLAIN_CALLS == plain
+            card = be
+        runs.append(([fields_of(p) for p in proofs], chals, rms))
+    assert runs[0] == runs[1]
+    assert ps.batch_show_verify(proofs, vk, params, rms, backend=card) == [True] * 64
+
+
+def test_g2_show_verify_on_cuda_matches_cpu(cuda):
+    """B = 64 under G2, proved on the card, one show in 8 forged four ways:
+    exact show verify (challenges recomputed) gives the expected bits on
+    the card and on the CPU, and the combined check on the honest batch is
+    one True."""
+    params, _, vk, sigs, msgs = entry.fixture(64, ctx="G2")
+    be = TorchBackend()
+    proofs, _, rms = pok_sig.batch_show(sigs, vk, params, msgs, entry.SHOW_REVEALED, be)
+    fproofs, frms, expect = entry.forge_shows(params, proofs, rms, every=8)
+    plain = cuda_fp.PLAIN_CALLS
+    got = ps.batch_show_verify(fproofs, vk, params, frms, backend=be)
+    assert ps.batch_show_verify(proofs, vk, params, rms, backend=be, mode="batched") == [True] * 64
+    assert cuda_fp.PLAIN_CALLS == plain
+    assert got == expect
+    cpu = TorchBackend(device="cpu")
+    assert ps.batch_show_verify(fproofs, vk, params, frms, backend=cpu) == got

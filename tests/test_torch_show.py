@@ -3,8 +3,10 @@ and the spec, on the CPU: the distinct-base signed MSM and its table build
 limb for limb against coconut_tpu/tpu/curve.py, the show encoder leaf for
 leaf against JaxBackend's, the JAX encoder's operands through the port's
 fused_show_verify, whole batches against PoKOfSignatureProof.verify and
-ps.batch_show_verify, the entry fixture's shows and forgeries, and the
-static-operand cache keyed by program kind and revealed set.
+ps.batch_show_verify, the entry fixture's shows and forgeries, the
+static-operand cache keyed by program kind and revealed set, and a G2
+show batch against the spec (the G2 family's own tests are in
+tests/test_torch_show_g2.py).
 
 Tolerance: exact — limbs, dtypes, shapes and verdict bits must be equal.
 """
@@ -239,15 +241,28 @@ def test_static_operand_cache_keys_on_kind_and_revealed_set():
     assert be.batch_show_verify([], vk, params, [], []) == []
 
 
-def test_g2_assignment_is_a_later_slice(mixed, port_backend):
-    import types
+def test_g2_show_batch_matches_spec(port_backend):
+    """The G2 show path: B = 2 shows under the G2 assignment made by the
+    JAX package's prover (pok_sig.show, Fiat-Shamir challenges) of
+    entry.fixture(ctx="G2")'s credentials, lane 1's revealed value bumped.
+    The port's bits (window 6, int16 wire) equal the JAX package's
+    sequential spec verify."""
+    from coconut_tpu.params import GroupContext as SpecContext, Params as SpecParams
+    from coconut_tpu.signature import Signature as SpecSignature, Verkey as SpecVerkey
 
-    params, vk, proofs, rmsgs, challenges, _ = mixed
-    g2_params = types.SimpleNamespace(
-        g=params.g, g_tilde=params.g_tilde, ctx=types.SimpleNamespace(name="G2")
-    )
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_backend.batch_show_verify(proofs, vk, g2_params, rmsgs, challenges)
+    params, _, vk, sigs, msgs = entry.fixture(2, ctx="G2")
+    jparams = SpecParams(params.g, params.g_tilde, params.h, SpecContext("G2"))
+    jvk = SpecVerkey(vk.X_tilde, vk.Y_tilde)
+    shows = [
+        pok_sig.show(SpecSignature(s.sigma_1, s.sigma_2), jvk, jparams, m, set(REVEALED))
+        for s, m in zip(sigs, msgs)
+    ]
+    proofs, challenges = [s[0] for s in shows], [s[1] for s in shows]
+    rmsgs = [dict(s[2]) for s in shows]
+    rmsgs[1][2] = (rmsgs[1][2] + 1) % R
+    want = batch_show_verify(proofs, jvk, jparams, rmsgs, challenges)
+    assert want == [True, False]
+    assert port_backend.batch_show_verify(proofs, jvk, jparams, rmsgs, challenges) == want
 
 
 _heavy_skip = pytest.mark.skipif(
