@@ -74,12 +74,37 @@ Phases, one line each (plus the kernel table and the result line):
      forged, through ps.batch_show_verify in exact and batched mode: the
      expected bits from the spec verifier proof by proof, the ragged
      counters 1 and 16, and no call of the backend.
+ 13. issue: threshold issuance (BASELINE config 4) under G1 at B = 1024,
+     6 attributes, 2 hidden, 3-of-5 (entry.issue_fixture: label-derived
+     params, trusted-dealer keys, one ElGamal key): the round
+     batch_prepare_blind_sign (device hash and the offset program, shown
+     by the backend's counters), batch_blind_sign by each of the 5
+     signers, batch_unblind of all 5 signers' batches in one call,
+     batch_aggregate over {1, 3, 5} and {2, 4, 5}, cold and three times
+     warm; Verkey.aggregate of each subset; TorchBackend.batch_verify of
+     the 1,024 credentials under both verkeys (all true) and with one lane
+     in 8 forged (the expected bits). 16 lanes of the device hash equal
+     the host spec's hash_to_g1; lanes 0 and B-1 of prepare and of one
+     blind-sign equal SignatureRequest.new / BlindSignature.new replayed
+     from the same draws on the host spec. Warm medians: prepare/s,
+     blind-sign/s (one signer's batch), unblind/s (blind signatures),
+     aggregate/s, issued credentials/s for the whole round; the kernel's
+     launches of each stage; the device's idle share over one warm round
+     (torch.profiler);
+ 14. issue_g2: the same round once under G2 at B = 16 (the host hashes to
+     G2): every credential verifies and the forged lanes fail;
+ 15. bucketed: G1 distinct MSMs at B = 64 and 32 bases a row, scalars over
+     Fr: "auto" takes the bucketed schedule at window 5 (64 bases after
+     GLV); its points equal the Horner schedule's and 8 lanes of the host
+     spec MSM; then a G2 batch ([16, 4] rows) forced through the bucketed
+     schedule at window 5 against the spec.
 
 Each path's first call runs with the kernel's counts set to 0 just before
 it and read just after; the kernel table's `launches` is their sum, and
 `launches_by_path` holds each (g2_verify: the sum of its three paths';
 prove: the prover's and its two FS verifies'; show_g2: the prover's and
-its two verifies').
+its two verifies'; issue: the round's four stages'; issue_g2: the same;
+bucketed: its three MSMs').
 
 Any failed check raises (non-zero exit). After the phases, a `done` line
 gives the script's seconds since start; then the kernel table, and last
@@ -90,6 +115,7 @@ Needs a CUDA card: without one it exits non-zero before printing results.
 import collections
 import json
 import random
+import secrets
 import statistics
 import subprocess
 import sys
@@ -100,10 +126,14 @@ import torch
 
 from coconut_tpu_torch import entry, pok_sig, ps, sss
 from coconut_tpu_torch import bench_fp_mul as kb
+from coconut_tpu_torch import signature as sig
 from coconut_tpu_torch.gpu import cuda_fp
 from coconut_tpu_torch.gpu.backend import TorchBackend
 from coconut_tpu_torch.gpu.limbs import MONT_R
+from coconut_tpu_torch.ops import hashing
+from coconut_tpu_torch.ops.curve import G1_GEN, G2_GEN, g1, g2
 from coconut_tpu_torch.ops.fields import P, R
+from coconut_tpu_torch.profile_verify import issue_round, profile
 from coconut_tpu_torch.signature import fiat_shamir_challenge
 
 LANES = kb.MAIN_WIDTHS[-1]  # one fp12_mul at B = 1024: 54 base products per lane
@@ -678,6 +708,221 @@ def ragged_phase(card, honest):
     )
 
 
+SUBSETS = ((1, 3, 5), (2, 4, 5))  # the two 3-of-5 aggregation subsets
+
+
+def _replayed(fn, draws):
+    """fn() with every rand_fr returning the given draws, in order."""
+    it = iter(draws)
+    saved = secrets.randbelow
+    secrets.randbelow = lambda n: next(it)
+    try:
+        return fn()
+    finally:
+        secrets.randbelow = saved
+
+
+def _round_points(out):
+    """A round's outputs as points, stage by stage: each request's
+    commitment, ciphertexts and draws, each blind signature's h and
+    (c_tilde_1, c_tilde_2), each signature's (sigma_1, sigma_2)."""
+
+    def pts(x):
+        if isinstance(x, tuple):
+            return x[0].commitment, x[0].ciphertexts, x[1]
+        if isinstance(x, sig.BlindSignature):
+            return x.h, x.blinded
+        return x.sigma_1, x.sigma_2
+
+    return {k: [pts(x) for x in v] for k, v in out.items()}
+
+
+def _check_round(fix, out, be, every):
+    """The issued credentials verify on the card under each subset's
+    aggregated verkey and give the expected bits with one lane in `every`
+    forged; no plain call. Returns the verkeys."""
+    params, signers, _, _, msgs = fix
+    vks = []
+    for sub in SUBSETS:
+        creds = out["aggregate_%s" % "".join(map(str, sub))]
+        vk = sig.Verkey.aggregate(
+            entry.ISSUANCE_THRESHOLD, [(j, signers[j - 1].verkey) for j in sub], params.ctx
+        )
+        _quiet(lambda: be.batch_verify(creds, msgs, vk, params), [True] * len(msgs),
+               "issued credentials under %s" % (sub,))
+        vks.append(vk)
+    fsigs, fmsgs, expect = entry.forge(params, creds, msgs, every=every)
+    _quiet(lambda: be.batch_verify(fsigs, fmsgs, vk, params), expect, "forged issued credentials")
+    return vks, expect.count(False)
+
+
+def _seeded_round(be, fix, subsets=SUBSETS):
+    """issue_round with the user's draws from one seed, so every run of the
+    round gives the same bytes."""
+    with entry.seeded_draws(0x5EED):
+        return issue_round(be, fix, subsets)
+
+
+def _drive_round(be, fix):
+    """The round cold, with the kernel's counts set to 0 just before and
+    read just after (no plain call allowed), then three times warm, each
+    byte-equal to the cold one. Returns (cold outputs, cold launches by
+    stage, warm median walls by stage, their launches)."""
+    cuda_fp.LAUNCHES = 0
+    cuda_fp.PLAIN_CALLS = 0
+    out, walls, cold = _seeded_round(be, fix)
+    if cuda_fp.LAUNCHES == 0 or cuda_fp.PLAIN_CALLS != 0:
+        raise AssertionError(
+            "the round ran %d launches and %d plain calls" % (cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS)
+        )
+    want = _round_points(out)
+    runs = [_seeded_round(be, fix) for _ in range(3)]
+    if any(_round_points(again) != want for again, _, _ in runs):
+        raise AssertionError("a warm round's outputs differ from the cold round's")
+    med = {k: statistics.median(w[k] for _, w, _ in runs) for k in walls}
+    return out, cold, med, runs[-1][2]
+
+
+def issue_phase(card):
+    """Threshold issuance under G1 at B = 1024 (BASELINE config 4)."""
+    t0 = time.perf_counter()
+    fix = entry.issue_fixture(BATCH)
+    params, signers, esk, epk, msgs = fix
+    fixture_s = time.perf_counter() - t0
+    be = TorchBackend()  # cuda, window 9, raw wire, device hash
+    if not be.device_hash_enabled():
+        raise AssertionError("the cuda backend does not hash on its device")
+    hashes, offsets = be.device_hash_batches, be.msm_offset_dispatches
+    t0 = time.perf_counter()
+    out, cold, med, warm_launches = _drive_round(be, fix)
+    parts_s = {"four_rounds": time.perf_counter() - t0}
+    if (be.device_hash_batches - hashes, be.msm_offset_dispatches - offsets) != (4, 4):
+        raise AssertionError(
+            "4 prepares made %d device hashes and %d offset programs"
+            % (be.device_hash_batches - hashes, be.msm_offset_dispatches - offsets)
+        )
+    plain = cuda_fp.PLAIN_CALLS
+    t0 = time.perf_counter()
+    vks, forged = _check_round(fix, out, be, FORGE_EVERY)
+    parts_s["three_verifies"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # spot lanes against the host spec
+    ctx = params.ctx
+    reqs = out["prepare"]
+    lanes = range(0, BATCH, BATCH // 16)
+    datas = [
+        sig.SignatureRequest.hash_input(reqs[i][0].commitment, reqs[i][0].known_messages, ctx)
+        for i in lanes
+    ]
+    if [reqs[i][0].get_h(ctx) for i in lanes] != [hashing.hash_to_g1(d) for d in datas]:
+        raise AssertionError("a device hash differs from the host spec")
+    for i in (0, BATCH - 1):
+        req, rnd = reqs[i]
+        one, _ = _replayed(lambda: sig.SignatureRequest.new(msgs[i], entry.ISSUANCE_HIDDEN, epk, params), rnd)
+        bs = sig.BlindSignature.new(req, signers[0].sigkey, params)
+        if one.to_bytes(ctx) != req.to_bytes(ctx) or bs.to_bytes(ctx) != out["blind_sign_1"][i].to_bytes(ctx):
+            raise AssertionError("lane %d differs from the host spec holders" % i)
+    if cuda_fp.PLAIN_CALLS != plain:
+        raise AssertionError("the checks ran the plain version")
+    parts_s["spec_checks"] = time.perf_counter() - t0
+
+    stages = {"prepare": ["prepare"], "blind_sign": ["blind_sign_1"], "unblind": ["unblind"],
+              "aggregate": ["aggregate_135"]}
+    n = {"prepare": BATCH, "blind_sign": BATCH, "unblind": len(signers) * BATCH, "aggregate": BATCH}
+    rates = {k + "_per_s": n[k] / sum(med[s] for s in v) for k, v in stages.items()}
+    round_s = sum(med[k] for k in med if k != "aggregate_245")  # one subset a round
+    rates["issued_credentials_per_s"] = BATCH / round_s
+    t0 = time.perf_counter()
+    prof = profile(lambda: _seeded_round(be, fix, SUBSETS[:1]))
+    parts_s["profile_two_rounds"] = time.perf_counter() - t0
+    log(
+        "issue", batch=BATCH, attrs=entry.MSG_COUNT, hidden=entry.ISSUANCE_HIDDEN,
+        threshold="%d-of-%d" % (entry.ISSUANCE_THRESHOLD, entry.ISSUANCE_SIGNERS),
+        subsets=[list(s) for s in SUBSETS], window=be.window, fixture_s=fixture_s,
+        launches_first_round=cold, launches_warm_round=warm_launches, warm_walls_s=med,
+        warm_round_s=round_s, **rates, parts_s=parts_s, forged=forged, verified_under_subsets=len(vks),
+        device_hash_batches=be.device_hash_batches, offset_programs=be.msm_offset_dispatches,
+        horner_dispatches=be.msm_horner_dispatches, bucketed_dispatches=be.msm_bucketed_dispatches,
+        spec_hash_lanes=len(datas), spec_holder_lanes=[0, BATCH - 1], plain_calls=0,
+        device_idle_share=prof["device_idle_share"], device_busy_ms=prof["device_busy_ms"],
+        device_launches=prof["device_launches"], profiled_round_s=prof["wall_s"],
+        fp_mul_profiled=prof["fp_mul"], card=card,
+    )
+    return sum(cold.values()), rates
+
+
+def issue_g2_phase(card):
+    """One issuance round under G2 at B = 16 (the host hashes to G2), with
+    the kernel's counts set to 0 just before it and read just after."""
+    fix = entry.issue_fixture(16, ctx="G2")
+    be = TorchBackend()
+    cuda_fp.LAUNCHES = 0
+    cuda_fp.PLAIN_CALLS = 0
+    out, walls, launches = _seeded_round(be, fix)
+    if cuda_fp.LAUNCHES == 0 or cuda_fp.PLAIN_CALLS != 0:
+        raise AssertionError("the G2 round ran the plain version or no kernel")
+    if be.device_hash_batches or be.msm_offset_dispatches != 1:
+        raise AssertionError("G2 prepare hashed on the device or skipped the offset program")
+    _, forged = _check_round(fix, out, be, FORGE_EVERY)
+    log("issue_g2", batch=16, ctx="G2", launches=launches, walls_s=walls, forged=forged, card=card)
+    return sum(launches.values())
+
+
+def bucketed_phase(card):
+    """The bucketed distinct-MSM schedule against Horner and the spec."""
+    rng = random.Random(0xB0C)
+    B, k = 64, 32
+
+    def points(ops, gen, rows, cols):  # a chain of adds of one random step
+        p, step = ops.mul(gen, rng.randrange(1, R)), ops.mul(gen, rng.randrange(1, R))
+        out = []
+        for _ in range(rows * cols):
+            p = ops.add(p, step)
+            out.append(p)
+        return [out[i * cols : (i + 1) * cols] for i in range(rows)]
+
+    g1_pts = points(g1, G1_GEN, B, k)
+    g1_scal = [[rng.randrange(R) for _ in range(k)] for _ in range(B)]
+    g2_pts = points(g2, G2_GEN, 16, 4)
+    g2_scal = [[rng.randrange(R) for _ in range(4)] for _ in range(16)]
+    for pts, scal in ((g1_pts, g1_scal), (g2_pts, g2_scal)):
+        pts[1][0] = None  # an identity base and a zero scalar
+        scal[2][1] = 0
+    be = TorchBackend()  # cuda: bucket_mode "auto"
+    if be.bucket_mode != "auto" or be._distinct_window(False, g1_pts) != 5:
+        raise AssertionError("auto does not take the bucketed schedule at window 5")
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        walls[name] = time.perf_counter() - t0
+        return res
+
+    cuda_fp.LAUNCHES = 0
+    cuda_fp.PLAIN_CALLS = 0
+    bucketed = timed("g1_bucketed_w5", lambda: be.msm_g1_distinct(g1_pts, g1_scal))
+    if (be.msm_bucketed_dispatches, be.msm_bucket_window) != (1, 5):
+        raise AssertionError("the auto schedule was not the bucketed one at window 5")
+    be.bucket_mode = "off"
+    horner = timed("g1_horner", lambda: be.msm_g1_distinct(g1_pts, g1_scal))
+    be.bucket_mode = 5
+    g2_got = timed("g2_bucketed_w5", lambda: be.msm_g2_distinct(g2_pts, g2_scal))
+    launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    if launches == 0 or plain or (be.msm_bucketed_dispatches, be.msm_horner_dispatches) != (2, 1):
+        raise AssertionError("bucketed phase: %d launches, %d plain calls" % (launches, plain))
+    lanes = range(0, B, B // 8)
+    if bucketed != horner or [bucketed[i] for i in lanes] != [g1.msm(g1_pts[i], g1_scal[i]) for i in lanes]:
+        raise AssertionError("the bucketed G1 MSM differs from Horner or the spec")
+    if g2_got != [g2.msm(p, s) for p, s in zip(g2_pts, g2_scal)]:
+        raise AssertionError("the bucketed G2 MSM differs from the spec")
+    log("bucketed", g1_rows=[B, k], g1_window=5, g2_rows=[16, 4], g2_window=5,
+        spec_lanes=len(lanes), launches=launches, walls_s=walls, card=card)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
@@ -710,6 +955,9 @@ def main():
     by_path["prove"], _ = prove_phase(card, vhonest, srate)
     by_path["show_g2"] = show_g2_phase(card, g2_creds, {"exact": srate, "combined": scrate})
     ragged_phase(card, vhonest)
+    by_path["issue"], _ = issue_phase(card)
+    by_path["issue_g2"] = issue_g2_phase(card)
+    by_path["bucketed"] = bucketed_phase(card)
     log("done", seconds=time.perf_counter() - started, card=card)
     kern["launches"] = sum(by_path.values())
     kern["launches_by_path"] = by_path

@@ -1,7 +1,8 @@
 """Entry points of the port's paths: a fixture of PS credentials and the
 three kinds of forged lane (verify, BASELINE config 2), a fixture of shown
-credentials and the four kinds of forged show (show-verify, config 3), and
-the fused verify program with example operands.
+credentials and the four kinds of forged show (show-verify, config 3), the
+keys and messages of a threshold issuance (config 4), and the fused verify
+program with example operands.
 
 `fixture` draws from the same seeded sequence as the JAX package's
 `__graft_entry__._fixture`, so one seed gives the same credentials in
@@ -10,9 +11,13 @@ the other groups' generators). Credentials are signed with a master key
 (the output shape of unblind + aggregate) and need no hash-to-curve.
 """
 
+import contextlib
 import functools
 import random
+import secrets
 
+from .elgamal import elgamal_keygen
+from .keygen import trusted_party_SSS_keygen
 from .ops.fields import R
 from .params import GroupContext, Params, SIGNATURES_IN_G1, Sigkey, Signature, Verkey
 from .pok_vc import Proof as SchnorrProof
@@ -146,6 +151,37 @@ def forge_shows(params, proofs, revealed_msgs_list, every=8):
         proofs[i] = PoKOfSignatureProof(s1, s2, p.J, vc, p.revealed_msg_indices)
         expect[i] = False
     return proofs, rmsgs, expect
+
+
+ISSUANCE_HIDDEN = 2  # BASELINE config 4: 2 hidden of 6 attributes
+ISSUANCE_THRESHOLD, ISSUANCE_SIGNERS = 3, 5
+
+
+@contextlib.contextmanager
+def seeded_draws(seed):
+    """Every rand_fr (it calls secrets.randbelow) inside the block draws
+    from random.Random(seed) instead of the OS CSPRNG: for fixtures and
+    replays only."""
+    saved = secrets.randbelow
+    secrets.randbelow = random.Random(seed).randrange
+    try:
+        yield
+    finally:
+        secrets.randbelow = saved
+
+
+def issue_fixture(batch, ctx="G1", seed=0x1550E):
+    """(params, signers, elgamal_sk, elgamal_pk, messages_list) of a
+    threshold issuance: label-derived params (Params.new, 6 attributes),
+    ISSUANCE_THRESHOLD-of-ISSUANCE_SIGNERS trusted-dealer keys and one user
+    ElGamal key pair drawn from `seed`, and `batch` message vectors."""
+    params = Params.new(MSG_COUNT, b"coconut-issue", GroupContext(ctx))
+    with seeded_draws(seed):
+        _, _, signers = trusted_party_SSS_keygen(ISSUANCE_THRESHOLD, ISSUANCE_SIGNERS, params)
+        esk, epk = elgamal_keygen(params.ctx.sig, params.g)
+    rng = random.Random(seed)
+    msgs = [[rng.randrange(R) for _ in range(MSG_COUNT)] for _ in range(batch)]
+    return params, signers, esk, epk, msgs
 
 
 def entry(batch=64, device=None):

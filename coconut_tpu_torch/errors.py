@@ -1,8 +1,8 @@
 """The port's error classes: its own copies of the JAX package's
-`CoconutError`, `UnsupportedNoOfMessages`, `UnequalNoOfBasesExponents` and
-`PSError` (`coconut_tpu/errors.py`), with the same names, messages and
-stable wire codes, so a caller that catches the PS layer's refusals by
-class or by `code` treats both packages alike."""
+`CoconutError`, `UnsupportedNoOfMessages`, `UnequalNoOfBasesExponents`,
+`PSError` and `GeneralError` (`coconut_tpu/errors.py`), with the same names, messages and
+stable wire codes, so a caller that catches the PS and issuance layers'
+refusals by class or by `code` treats both packages alike."""
 
 
 class CoconutError(Exception):
@@ -45,3 +45,11 @@ class PSError(CoconutError):
     unknown verify mode, revealed messages that do not match a proof."""
 
     code = "ps_error"
+
+
+class GeneralError(CoconutError):
+    """Catch-all with a message: issuance and secret-sharing refusals (a
+    bad threshold, a short or duplicated aggregation subset, a key list of
+    the wrong length)."""
+
+    code = "general"

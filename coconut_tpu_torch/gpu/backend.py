@@ -23,6 +23,15 @@ show-verify paths of `coconut_tpu/tpu/backend.py`:
   and are decoded on the host. G1 distinct MSMs split each scalar by GLV
   (gpu/glv.py, 27 windows instead of 52).
 
+  Issuance (BASELINE config 4, `coconut_tpu_torch.signature`'s batch
+  functions) adds: the device hash-to-G1 (hash_to_g1_program: the SvdW
+  map of both field candidates, one add, the cofactor ladder; the
+  expand_message_xmd stays on the host), the distinct MSM with a per-lane
+  affine offset taken from another program's packed output on the device
+  (msm_distinct_plus_offset_program, via _unpack_pt), and the bucketed
+  (Pippenger) schedule of the distinct MSMs (curve.msm_distinct_bucketed),
+  chosen per batch shape by the reference's cost model (_bucket_window).
+
   fused_verify_combined / fused_show_verify_combined: the random-linear-
   combination batch check. Each lane's pairing check is raised to a
   128-bit combiner r_i, so the B checks fold into one product of B+1
@@ -43,6 +52,7 @@ Every path runs under both signature assignments: ctx "G1" (signatures
 in G1, the default) and "G2" (the roles of the groups swap).
 """
 
+import os
 import secrets
 from collections import OrderedDict
 
@@ -50,14 +60,15 @@ import numpy as np
 import torch
 
 from ..batchverify import derive_combiners, show_transcript, verify_transcript
-from ..ops.curve import g1 as _g1, g2 as _g2
-from ..ops.fields import R
+from ..ops.curve import G1_COFACTOR, g1 as _g1, g2 as _g2
+from ..ops.fields import P, R
+from ..ops.hashing import DST_G1, expand_message_xmd
 from . import curve as cv
 from . import fp
 from . import glv
 from . import pairing as pr
 from . import tower as tw
-from .limbs import fp_encode, fr_digits_signed_np
+from .limbs import NLIMBS, fp_encode, fp_encode_raw_batch, fr_digits_signed_np
 
 _SIGNED_NWIN = 52  # signed 5-bit windows covering the 255-bit Fr
 
@@ -74,6 +85,56 @@ _G_WINDOW = 6
 _G_NWIN = -(-255 // _G_WINDOW)  # 43
 _G_RNWIN = -(-_R_RAND_BITS // _G_WINDOW) + 1  # 23
 _G_ENTRIES = (1 << (_G_WINDOW - 1)) + 1  # 33
+
+
+def bucket_mode(device):
+    """The distinct MSMs' schedule mode, resolved as the reference resolves
+    it: COCONUT_MSM_WINDOW=w forces the bucketed schedule at window w
+    (2..8), COCONUT_MSM_WINDOW=0 forces Horner; unset, the cost model
+    chooses ("auto") on `cuda` and Horner runs ("off") elsewhere. One
+    setting gives the same schedule in both packages."""
+    v = os.environ.get("COCONUT_MSM_WINDOW")
+    if v is None:
+        return "auto" if device.type == "cuda" else "off"
+    w = int(v)
+    if w == 0:
+        return "off"
+    if not 2 <= w <= 8:
+        raise ValueError(
+            "COCONUT_MSM_WINDOW=%d unsupported: bucketed windows span 2..8 "
+            "(uint8 digit magnitudes; 0 disables)" % w
+        )
+    return w
+
+
+def _bucket_cost(k, nbits, w):
+    # batch-width add-equivalents a row: nwin windows of (w doublings at
+    # ~0.75 add each, k scatter adds, 2 nb running-sum adds, 1 Horner add);
+    # no table build
+    nwin = -(-nbits // w) + 1
+    return nwin * (0.75 * w + k + 2 * (1 << (w - 1)) + 1)
+
+
+def _horner_cost(k, nbits):
+    # msm_distinct_signed: 16 chained table adds at k lanes, then nwin
+    # windows of (5 doublings, k gathered adds)
+    nwin = -(-nbits // 5) + 1
+    return 16 * k + nwin * (0.75 * 5 + k)
+
+
+def _bucket_window(k, nbits, mode):
+    """The bucketed schedule's window for an effective (post-GLV) base
+    count `k` a row and scalar width `nbits` under `mode` (bucket_mode), or
+    None for Horner. The cost model's crossover sits near k ~ 64: below it
+    the 17-entry-table Horner schedule is cheaper."""
+    if mode == "off" or k <= 0:
+        return None
+    if mode != "auto":
+        return mode
+    best = min(range(2, 9), key=lambda w: _bucket_cost(k, nbits, w))
+    if _bucket_cost(k, nbits, best) < _horner_cost(k, nbits):
+        return best
+    return None
 
 
 def resolve_device(device=None):
@@ -145,11 +206,43 @@ class _LRU:
         self._d[key] = val
 
 
+class PackedPoints(tuple):
+    """A point program's packed affine output (x, y, inf): x and y are
+    uint8 [..., 48] canonical digits of the MONTGOMERY value (+ 2p), from
+    fp.pack_canon48. Not a wire operand: a raw-wire uint8 coordinate holds
+    the STANDARD-domain value, and _pts_f32 moves it into the Montgomery
+    domain. A program that consumes another's output on the device goes
+    through _unpack_pt, which takes only this type; _pts_f32 refuses it."""
+
+
+def _holds_packed(tree):
+    return isinstance(tree, tuple) and (
+        isinstance(tree, PackedPoints) or any(_holds_packed(t) for t in tree)
+    )
+
+
+def _unpack_pt(packed):
+    """A PackedPoints handle -> (x, y, inf) with f32 limb coordinates: the
+    digits 0..255 are valid LAZY limbs of the Montgomery value (the +2p is
+    absorbed mod p downstream), and limbs 48..51 come back as zeros. No
+    domain change."""
+    if not isinstance(packed, PackedPoints):
+        raise TypeError("_unpack_pt takes a program's PackedPoints output")
+    x, y, inf = packed
+
+    def f(t):
+        return torch.nn.functional.pad(t.float(), (0, NLIMBS - t.shape[-1]))
+
+    return tw.tree_map(f, x), tw.tree_map(f, y), inf
+
+
 def _pts_f32(tree):
     """Uploaded point operands enter the field arithmetic here, by dtype:
     uint8 [..., 48] raw canonical digits -> fp.to_mont (one multiply by
     R^2); int16 [..., 52] balanced Montgomery limbs -> float32; float32
-    unchanged."""
+    unchanged. A program's packed output is refused (see PackedPoints)."""
+    if _holds_packed(tree):
+        raise TypeError("a program's packed output is not a wire operand; use _unpack_pt")
 
     def conv(t):
         if t.dtype == torch.uint8:
@@ -553,20 +646,61 @@ def msm_shared_many_program(fl, jobs):
     outs, off = [], 0
     for _, mag, _ in jobs:
         size = mag.shape[0]
-        outs.append(tw.tree_map(lambda t: t[off : off + size], (x, y, inf)))
+        outs.append(PackedPoints(tw.tree_map(lambda t: t[off : off + size], (x, y, inf))))
         off += size
     return outs
 
 
-def msm_distinct_affine_program(fl, x, y, inf, mag, sgn):
-    """Distinct-base MSM program: per-row points x, y, inf [B, k] (wire or
-    field limbs), signed 5-bit digits mag/sgn [B, k, nwin] -> (x, y, inf)
-    [B], the affine results packed to uint8 digits (Horner schedule,
-    curve.msm_distinct_signed)."""
+def _distinct_acc(fl, x, y, inf, mag, sgn, window):
+    """The distinct MSM's projective accumulator on the Horner schedule
+    (window None: signed 5-bit digits) or the bucketed one at `window`."""
     x, y = _pts_f32((x, y))
-    acc = cv.msm_distinct_signed(fl, x, y, inf, mag, sgn)
+    if window is None:
+        return cv.msm_distinct_signed(fl, x, y, inf, mag, sgn)
+    return cv.msm_distinct_bucketed(fl, x, y, inf, mag, sgn, window)
+
+
+def _affine_packed(fl, acc):
     ax, ay, ainf = cv.to_affine(fl, acc)
-    return _pack_pts((ax, ay)) + (ainf,)
+    return PackedPoints(_pack_pts((ax, ay)) + (ainf,))
+
+
+def msm_distinct_affine_program(fl, x, y, inf, mag, sgn, window=None):
+    """Distinct-base MSM program: per-row points x, y, inf [B, k] (wire or
+    field limbs), signed digits mag/sgn [B, k, nwin] -> PackedPoints [B],
+    the affine results packed to uint8 digits. `window` None runs the
+    Horner schedule (curve.msm_distinct_signed, 5-bit digits); an int runs
+    the bucketed one at that window (curve.msm_distinct_bucketed)."""
+    return _affine_packed(fl, _distinct_acc(fl, x, y, inf, mag, sgn, window))
+
+
+def msm_distinct_plus_offset_program(fl, x, y, inf, mag, sgn, offset, window=None):
+    """affine(offset_i + MSM_i): the distinct MSM of msm_distinct_affine_program
+    with a per-lane affine offset added before the affine conversion.
+    `offset` is another program's PackedPoints [B] (one job of a
+    shared-many handle), consumed on the device through _unpack_pt: the
+    prepare step's c2 = pk^k + h^m is assembled here instead of on the
+    host."""
+    acc = _distinct_acc(fl, x, y, inf, mag, sgn, window)
+    ox, oy, oinf = _unpack_pt(offset)
+    off = cv.affine_to_jacobian(fl, ox, oy, oinf)
+    return _affine_packed(fl, cv.jadd(fl, acc, off))
+
+
+def hash_to_g1_program(u_digits, u_par):
+    """The device half of hash_to_g1: u_digits uint8 [B, 2, 48] raw
+    canonical (standard-domain) digits of the two field candidates of each
+    message, u_par bool [B, 2] their sgn0 bits from the host. Enters the
+    Montgomery domain (fp.to_mont), maps both candidates stacked
+    (curve.svdw_map_fp), adds them with one complete add, clears the
+    cofactor (curve.scalar_mul_static), then one affine and the packed
+    readback -> PackedPoints [B]. Bit-identical to ops.hashing.hash_to_g1."""
+    u = fp.to_mont(u_digits)  # [B, 2, L]
+    x, y = cv.svdw_map_fp(u, u_par)
+    ones = fp.ones_mont(u_par.shape, u.device)
+    p0, p1 = ((x[:, i], y[:, i], ones[:, i]) for i in range(2))
+    h = cv.scalar_mul_static(cv.FP, cv.jadd(cv.FP, p0, p1), G1_COFACTOR)
+    return _affine_packed(cv.FP, h)
 
 
 def _decode_points(x, y, inf):
@@ -590,10 +724,19 @@ class TorchBackend:
     points as 48 raw bytes per Fp and enter the Montgomery domain on the
     device (default on cuda) instead of as int16 balanced limbs.
 
+    `bucket_mode` is the distinct MSMs' schedule: bucket_mode(device) at
+    construction ("auto" on cuda, "off" on cpu, or COCONUT_MSM_WINDOW's);
+    assign "auto", "off" or a window 2..8 to change it.
+
     Counters: `combined_checks` (calls of the combined methods),
-    `grouped_checks` (calls of the grouped methods) and `final_exps`
+    `grouped_checks` (calls of the grouped methods), `final_exps`
     (final-exponentiation lanes: B a batch on the exact paths, one a
-    combined or grouped check)."""
+    combined or grouped check), `msm_horner_dispatches` /
+    `msm_bucketed_dispatches` (distinct-MSM programs by schedule, the
+    plus-offset ones included; `msm_bucket_window` is the last bucketed
+    window), `msm_offset_dispatches` (plus-offset programs) and
+    `device_hash_batches` / `device_hash_points` (hash_to_g1 programs and
+    their messages)."""
 
     name = "torch"
 
@@ -612,9 +755,16 @@ class TorchBackend:
         self._static_cache = _LRU(self._STATIC_CACHE_MAX)
         self.encode_cache_hits = 0
         self.encode_cache_misses = 0
+        self.bucket_mode = bucket_mode(self.device)
         self.combined_checks = 0
         self.grouped_checks = 0
         self.final_exps = 0
+        self.msm_horner_dispatches = 0
+        self.msm_bucketed_dispatches = 0
+        self.msm_bucket_window = None
+        self.msm_offset_dispatches = 0
+        self.device_hash_batches = 0
+        self.device_hash_points = 0
 
     # -- point encoding ------------------------------------------------------
 
@@ -856,11 +1006,13 @@ class TorchBackend:
     def msm_g2_shared(self, bases, scalars_batch):
         return self.msm_g2_shared_many([(bases, scalars_batch)])[0]
 
-    def _encode_distinct(self, is_fp2, points_batch, scalars_batch):
+    def _encode_distinct(self, is_fp2, points_batch, scalars_batch, window=5):
         """Distinct-MSM operands (x, y, inf [B, k'], mag, sgn [B, k', nwin]).
-        G1 splits each scalar by GLV over (P, phi(P)) (k' = 2k, 27 windows
-        over the 128-bit halves; the points must lie in the r-order
-        subgroup); G2 runs 52 windows over Fr (k' = k)."""
+        G1 splits each scalar by GLV over (P, phi(P)) (k' = 2k, the 128-bit
+        halves; the points must lie in the r-order subgroup); G2 runs over
+        the 255-bit Fr (k' = k). Signed `window`-bit digits, nwin =
+        ceil(bits / window) + 1: 27 / 52 windows at the Horner schedule's
+        5 bits, the bucketed schedule's window otherwise."""
         B = len(points_batch)
         k = len(points_batch[0])
         if any(len(row) != k for row in points_batch):
@@ -876,12 +1028,33 @@ class TorchBackend:
         enc = self._encode_g2_points if is_fp2 else self._encode_g1_points
         (x, y), inf = enc(flat)
         x, y = tw.tree_map(lambda t: t.reshape((B, k) + t.shape[1:]), (x, y))
-        mag, sgn = _signed_digits(scalars_batch, self.device, nwin=-(-bits // 5) + 1)
+        mag, sgn = _signed_digits(
+            scalars_batch, self.device, nwin=-(-bits // window) + 1, window=window
+        )
         return x, y, inf.reshape(B, k), mag, sgn
 
+    def _distinct_window(self, is_fp2, points_batch):
+        """The schedule of a distinct-MSM batch: None for Horner, else the
+        bucketed window (_bucket_window over the post-GLV base count and
+        scalar width)."""
+        k0 = len(points_batch[0]) if points_batch else 0
+        if is_fp2:
+            return _bucket_window(k0, 255, self.bucket_mode)
+        return _bucket_window(2 * k0, glv.HALF_BITS, self.bucket_mode)
+
+    def _distinct_operands(self, is_fp2, points_batch, scalars_batch):
+        """(window, operands) of a distinct MSM on its schedule, counted."""
+        w = self._distinct_window(is_fp2, points_batch)
+        if w is None:
+            self.msm_horner_dispatches += 1
+            return None, self._encode_distinct(is_fp2, points_batch, scalars_batch)
+        self.msm_bucketed_dispatches += 1
+        self.msm_bucket_window = w
+        return w, self._encode_distinct(is_fp2, points_batch, scalars_batch, window=w)
+
     def _msm_distinct_dispatch(self, is_fp2, points_batch, scalars_batch):
-        ops = self._encode_distinct(is_fp2, points_batch, scalars_batch)
-        return msm_distinct_affine_program(cv.FP2 if is_fp2 else cv.FP, *ops)
+        w, ops = self._distinct_operands(is_fp2, points_batch, scalars_batch)
+        return msm_distinct_affine_program(cv.FP2 if is_fp2 else cv.FP, *ops, window=w)
 
     @staticmethod
     def msm_distinct_wait(handle):
@@ -901,6 +1074,69 @@ class TorchBackend:
 
     def msm_g2_distinct(self, points_batch, scalars_batch):
         return self.msm_distinct_wait(self.msm_g2_distinct_async(points_batch, scalars_batch))
+
+    def _msm_distinct_plus_offset(self, is_fp2, points_batch, scalars_batch, offset_handle):
+        w, ops = self._distinct_operands(is_fp2, points_batch, scalars_batch)
+        self.msm_offset_dispatches += 1
+        return msm_distinct_plus_offset_program(
+            cv.FP2 if is_fp2 else cv.FP, *ops, offset_handle, window=w
+        )
+
+    def msm_g1_distinct_plus_offset_async(self, points_batch, scalars_batch, offset_handle):
+        """affine(offset_i + MSM_i), `offset_handle` a PackedPoints triple
+        of shape [B] (one job of a msm_g1_shared_many_async handle),
+        consumed on the device. Settle with msm_distinct_wait."""
+        return self._msm_distinct_plus_offset(False, points_batch, scalars_batch, offset_handle)
+
+    def msm_g2_distinct_plus_offset_async(self, points_batch, scalars_batch, offset_handle):
+        return self._msm_distinct_plus_offset(True, points_batch, scalars_batch, offset_handle)
+
+    # -- device hash-to-G1 ---------------------------------------------------
+
+    def device_hash_enabled(self):
+        """Whether protocol callers hash to G1 on this backend's device: on
+        `cuda`, not on `cpu` (there the host spec hashes, as on the
+        reference's CPU)."""
+        return self.device.type == "cuda"
+
+    def hash_to_g1_async(self, datas, dst=None):
+        """Enqueue hash_to_g1 of a batch of messages: expand_message_xmd on
+        the host (SHA-256), the two reduced field candidates of each
+        message uploaded as raw digits with their sgn0 bits
+        (hash_operands), the map, add and cofactor clear as one program
+        (hash_to_g1_program). Settle with hash_to_g1_wait."""
+        self.device_hash_batches += 1
+        self.device_hash_points += len(datas)
+        return hash_to_g1_program(*self.hash_operands(datas, dst))
+
+    def hash_operands(self, datas, dst=None):
+        """The host half of hash_to_g1: each message's two field candidates
+        (expand_message_xmd, 128 bytes, reduced mod p) as uint8 [B, 2, 48]
+        raw digits and their sgn0 bits bool [B, 2], on the device."""
+        dst = DST_G1 if dst is None else dst
+        us = []
+        for m in datas:
+            b = expand_message_xmd(m, dst, 128)
+            us.append(int.from_bytes(b[:64], "big") % P)
+            us.append(int.from_bytes(b[64:], "big") % P)
+        B = len(datas)
+        dig = torch.from_numpy(fp_encode_raw_batch(us).reshape(B, 2, -1).copy())
+        par = torch.from_numpy(np.array([u & 1 for u in us], dtype=bool).reshape(B, 2))
+        return dig.to(self.device), par.to(self.device)
+
+    @staticmethod
+    def hash_to_g1_wait(handle):
+        """Wait for a hash_to_g1_async handle -> [B] affine points. Raises
+        as the spec does on the identity output (probability ~2^-255)."""
+        if bool(handle[2].any()):
+            raise ValueError("hash_to_g1 hit the identity (probability ~2^-255)")
+        return _decode_points(*handle)
+
+    def hash_to_g1_batch(self, datas, dst=None):
+        """Synchronous device hash-to-G1 (dispatch and wait)."""
+        if not datas:
+            return []
+        return self.hash_to_g1_wait(self.hash_to_g1_async(datas, dst))
 
     # -- combined (RLC) checks ----------------------------------------------
 

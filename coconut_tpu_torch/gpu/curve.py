@@ -1,6 +1,7 @@
-"""Batched G1/G2 complete projective arithmetic, the shared-base comb MSM
-and the distinct-base signed MSM — the port of the verify and show-verify
-slices' half of `coconut_tpu/tpu/curve.py`.
+"""Batched G1/G2 complete projective arithmetic, the shared-base comb MSM,
+the distinct-base MSMs (the signed Horner schedule and the bucketed one),
+the static scalar multiplication and the SvdW map of the hash to G1 — the
+port of `coconut_tpu/tpu/curve.py`.
 
 Point formulas are the Renes-Costello-Batina (2015) COMPLETE projective
 addition/doubling for a = 0: valid for every pair of inputs including the
@@ -13,10 +14,14 @@ twist), mirroring the spec's CurveOps being generic over the field. Points
 are (X, Y, Z) tuples of field elements with leading batch dims.
 """
 
+import functools
+
 import torch
 
+from ..ops.fields import P
 from . import fp
 from . import tower as tw
+from .limbs import MONT_R, balanced_limbs
 from .tower import tree_map
 
 
@@ -268,3 +273,125 @@ def msm_shared_comb(fl, wtables, mag, sgn):
     Y = fl.select(sgn_t, fl.neg(Y), Y)
     flat = tree_map(lambda t: t.reshape((k * nwin, B) + t.shape[3:]), (X, Y, Z))
     return fold_points_any(fl, flat, k * nwin, axis_offset=0)
+
+
+def msm_distinct_bucketed(fl, x, y, inf, mag, sgn, window):
+    """Bucketed (Pippenger) distinct-base MSM: the table-free schedule for
+    rows with many bases, where msm_distinct_signed's 17-entry table build
+    (16 chained adds at [..., k] width) and its gathers dominate.
+
+    x, y, inf: affine points [..., k]; mag/sgn: [..., k, nwin] signed
+    `window`-bit digits, msb first, magnitudes <= nb = 2^(window-1). Horner
+    over the windows: per window `window` doublings, then each of the k
+    points is scattered into its digit's bucket (gather the bucket, one
+    complete add at batch width, one-hot writeback) in base order, then the
+    nb buckets fold by the running-sum trick (sum_b b * bucket_b in 2nb
+    adds, top bucket first) and one add joins the total. A zero digit
+    scatters nothing (its one-hot row is all false). The order of adds is
+    the reference's, so the projective limbs compare with it. Returns a
+    projective accumulator with leading dims [...]."""
+    nb = 1 << (window - 1)
+    bshape = inf.shape[:-1]
+    bdim = len(bshape)
+    dev = inf.device
+    jac = affine_to_jacobian(fl, x, y, inf)  # leaves [..., k, L]
+    slots = torch.arange(nb, device=dev)
+    acc = jinfinity(fl, bshape, dev)
+    for w in range(mag.shape[-1]):
+        for _ in range(window):
+            acc = jdouble(fl, acc)
+        buckets = jinfinity(fl, bshape + (nb,), dev)
+        for j in range(inf.shape[-1]):
+            d = mag[..., j, w].long()
+            px, py, pz = tree_map(lambda t: t.select(bdim, j), jac)
+            pj = (px, fl.select(sgn[..., j, w], fl.neg(py), py), pz)
+            idx = (d - 1).clamp(min=0)[..., None, None]  # d = 0 is masked below
+            cur = tree_map(
+                lambda t: torch.take_along_dim(t, idx, dim=bdim).squeeze(bdim), buckets
+            )
+            new = jadd(fl, cur, pj)
+            onehot = ((slots == idx[..., 0]) & (d[..., None] > 0))[..., None]
+            buckets = tree_map(
+                lambda bt, nt: torch.where(onehot, nt.unsqueeze(bdim), bt), buckets, new
+            )
+        run = jinfinity(fl, bshape, dev)
+        tot = jinfinity(fl, bshape, dev)
+        for b in range(nb - 1, -1, -1):
+            run = jadd(fl, run, tree_map(lambda t: t.select(bdim, b), buckets))
+            tot = jadd(fl, tot, run)
+        acc = jadd(fl, acc, tot)
+    return acc
+
+
+def scalar_mul_static(fl, pt, k, window=4):
+    """Projective point times a static positive int: fp.pow_static's
+    structure over the curve. The multiples 0..2^window-1 come from chained
+    complete adds from the identity; each msb-first window is `window`
+    doublings and one add of its multiple (the identity for a zero digit,
+    added like any other, as the reference's scan does). The complete
+    formulas hold on the whole curve: the cofactor clear of the hash to G1
+    (126 bits, 32 windows) runs on points outside the r-torsion, so it
+    never goes through GLV."""
+    assert k > 0
+    lead = tw.leaves(pt)[0]
+    shape, dev = lead.shape[:-1], lead.device
+    nw = (k.bit_length() + window - 1) // window
+    digits = [(k >> (window * i)) & ((1 << window) - 1) for i in range(nw - 1, -1, -1)]
+    rows = [jinfinity(fl, shape, dev)]
+    for _ in range(1, 1 << window):
+        rows.append(jadd(fl, rows[-1], pt))
+    acc = jinfinity(fl, shape, dev)
+    for d in digits:
+        for _ in range(window):
+            acc = jdouble(fl, acc)
+        acc = jadd(fl, acc, rows[d])
+    return acc
+
+
+# --- SvdW map (the device half of hash_to_g1) --------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _svdw_mont(device):
+    """The SvdW constants of the Fp map (ops/hashing._SVDW_FP: Z, c1..c4)
+    and the curve's b = 4, as Montgomery limb vectors on `device`."""
+    from ..ops.hashing import _SVDW_FP
+
+    def enc(v):
+        return torch.from_numpy(balanced_limbs(v * MONT_R % P)).to(device)
+
+    return tuple(enc(v) for v in _SVDW_FP + (4,))
+
+
+def svdw_map_fp(u, u_par):
+    """Batched SvdW straight-line map to the curve over Fp, bit-identical to
+    the spec (ops/hashing._map_to_curve_svdw over _FpAdapter). u [..., L]:
+    field elements in Montgomery limbs; u_par [...] bool: sgn0(u), known on
+    the host (u is the expand_message_xmd output). Returns affine (x, y).
+    The map never outputs the identity.
+
+    Fixed op count, branchless selects. The three candidates' square
+    roots run as ONE stacked pow_static over a [..., 3] axis; the inverse
+    of tv1 * tv2 maps 0 to 0 (fp.inv), as the spec's inv0 does. sgn0(y) is
+    taken on from_mont(y), the standard-domain value."""
+    Z, c1, c2, c3, c4, b4 = _svdw_mont(u.device)
+    one = fp.ones_mont(u.shape[:-1], u.device)
+    tv1 = fp.mul(fp.sq(u), c1)
+    tv2 = fp.add(one, tv1)
+    tv1m = fp.sub(one, tv1)
+    tv3 = fp.inv(fp.mul(tv1m, tv2))
+    tv4 = fp.mul(fp.mul(fp.mul(u, tv1m), tv3), c3)
+    x1 = fp.sub(c2, tv4)
+    x2 = fp.add(c2, tv4)
+    t5 = fp.mul(fp.sq(tv2), tv3)
+    x3 = fp.add(fp.mul(fp.sq(t5), c4), Z)
+    xs = torch.stack(torch.broadcast_tensors(x1, x2, x3), dim=-2)  # [..., 3, L]
+    gxs = fp.add(fp.mul(fp.sq(xs), xs), b4)  # g(x) = x^3 + 4
+    ss = fp.pow_static(gxs, (P + 1) // 4)  # the candidate square roots
+    # gx is a square iff s^2 == gx (P = 3 mod 4): the spec's test
+    ok = fp.is_zero(fp.sub(fp.sq(ss), gxs))  # [..., 3]
+    ok1, ok2 = ok[..., 0], ok[..., 1]
+    x = fp.select(ok1, xs[..., 0, :], fp.select(ok2, xs[..., 1, :], xs[..., 2, :]))
+    y = fp.select(ok1, ss[..., 0, :], fp.select(ok2, ss[..., 1, :], ss[..., 2, :]))
+    flip = fp.canon_parity(fp.from_mont(y)) != u_par
+    return x, fp.select(flip, fp.neg(y), y)

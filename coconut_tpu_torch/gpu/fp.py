@@ -68,6 +68,7 @@ assert 255 <= L_LAZY and P <= V_LAZY and P < 256**48
 _CONSTS_NP = {
     "one_m": balanced_limbs(MONT_R % P),
     "r2": balanced_limbs(MONT_R * MONT_R % P),
+    "one_raw": balanced_limbs(1),
 }
 
 
@@ -128,6 +129,15 @@ def to_mont(t):
     if t.shape[-1] < NLIMBS:
         t = F.pad(t, (0, NLIMBS - t.shape[-1]))
     return mul(t, _const("r2", t.device))
+
+
+def from_mont(t):
+    """Montgomery limbs -> limbs whose value is the standard-domain
+    representative: one multiply by the raw integer 1 (x R * 1 * R^-1 = x).
+    The output is a mul output (|value| < 0.66p). The SvdW map's sgn0 is
+    taken on it: the sign is defined on the canonical integer, not on its
+    Montgomery image."""
+    return mul(t, _const("one_raw", t.device))
 
 
 def pow_static(a, e, window=4):
@@ -220,6 +230,26 @@ def pack_canon48(t):
     intermediate is an exact small float32 integer. The host inverse is
     limbs.fp_decode_batch's uint8 path."""
     return _canon_digits(t)[..., :CANON_BYTES].to(torch.uint8)
+
+
+def canon_parity(t):
+    """sgn0 of t: the parity of the canonical representative of t mod p,
+    for NORMALIZED limbs with |value| < p (any mul output). With w = value
+    + 2p in (p, 3p) the canonical value is w - 2p when w >= 2p and w - p
+    otherwise; p is odd, so its parity is w's, flipped when w < 2p. Both
+    come from _canon_digits: w's parity is digit 0's, and w >= 2p is a
+    digit compare against 2p, most significant first (a value 0 gives
+    w == 2p and parity 0, as sgn0(0) = 0). Returns bool [...]."""
+    digits = _canon_digits(t)
+    diff = torch.sign(digits - _two_p(t.device))  # [..., 52]
+    # the sign of the most significant nonzero difference (0 if none: the
+    # index clamps to digit 0, whose difference is then 0 too)
+    top = torch.where(
+        diff != 0.0, torch.arange(NLIMBS, device=t.device), -1
+    ).amax(dim=-1, keepdim=True)
+    ge2p = torch.gather(diff, -1, top.clamp(min=0))[..., 0] >= 0.0
+    par_w = torch.remainder(digits[..., 0], 2.0) != 0.0
+    return torch.where(ge2p, par_w, ~par_w)
 
 
 def _canon_digits(t):

@@ -1,9 +1,10 @@
 """BLS12-381 group arithmetic on Python ints — the port's host copy of the
-spec curve ops (`coconut_tpu/ops/curve.py`), cut to what the verify slice
-uses: point add, double, negation and scalar multiplication for G1 (over
-Fp) and G2 (over Fp2), and the standard generators. They build the
-comb-table host multiples, negate sigma_2 before upload, and make the
-fixture credentials.
+spec curve ops (`coconut_tpu/ops/curve.py`): point add, subtract, double,
+negation, scalar multiplication and MSM for G1 (over Fp) and G2 (over
+Fp2), the standard generators and the cofactors. They
+build the comb-table host multiples, negate sigma_2 before upload, make
+the fixture credentials, and are the host spec of the issuance protocol
+and of the hash to the curves.
 
 Points are affine tuples `(x, y)` with `None` as the point at infinity;
 internally the ops use Jacobian coordinates (X, Y, Z), Z == 0 for infinity.
@@ -26,6 +27,9 @@ from .fields import (
     FP2_ONE,
     FP2_ZERO,
 )
+
+G1_COFACTOR = 0x396C8C005555E1568C00AAAB0000AAAB
+G2_COFACTOR = 0x5D543A95414E7F1091D50792876A202CD91DE4547085ABAA68A205B2E5A7DDFA628F1CB4D9E82EF21537E293A6691AE1616EC6E786F0C70CF1C38E31C7238E5
 
 B_G1 = 4  # E:  y^2 = x^3 + 4
 B_G2 = (4, 4)  # E': y^2 = x^3 + 4(u+1)
@@ -140,6 +144,9 @@ class CurveOps:
         if p is None:
             return None
         return (p[0], self.f_neg(p[1]))
+
+    def sub(self, p, q):
+        return self.add(p, self.neg(q))
 
     def mul(self, p, k):
         """Scalar multiplication k*p (k any int)."""

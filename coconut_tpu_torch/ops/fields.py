@@ -1,8 +1,9 @@
 """BLS12-381 field arithmetic on Python ints — the port's host copy of the
-pure-Python spec (`coconut_tpu/ops/fields.py`): the curve constants, Fp
-and Fp2 arithmetic for the host curve ops, the Fp6/Fp12 tower and the
-Frobenius maps of the host spec pairing (`ops/pairing.py`), and the
-Frobenius coefficients the device tower encodes.
+pure-Python spec (`coconut_tpu/ops/fields.py`): the curve constants, Fr
+arithmetic for secret sharing, Fp and Fp2 arithmetic (square roots and
+signs for the hash to the curves) for the host curve ops, the Fp6/Fp12
+tower and the Frobenius maps of the host spec pairing (`ops/pairing.py`),
+and the Frobenius coefficients the device tower encodes.
 
 Representation (identical to the spec, so decoded device results compare
 with it directly):
@@ -23,6 +24,19 @@ BLS_X = -0xD201000000010000
 
 assert R == BLS_X**4 - BLS_X**2 + 1
 assert P == (BLS_X - 1) ** 2 // 3 * R + BLS_X
+
+# --- Fr (scalar field) -----------------------------------------------------
+
+
+def fr_mul(a, b):
+    return (a * b) % R
+
+
+def fr_inv(a):
+    if a % R == 0:
+        raise ZeroDivisionError("inverse of 0 in Fr")
+    return pow(a, -1, R)
+
 
 # --- Fp --------------------------------------------------------------------
 
@@ -51,6 +65,19 @@ def fp_inv(a):
     if a % P == 0:
         raise ZeroDivisionError("inverse of 0 in Fp")
     return pow(a, -1, P)
+
+
+def fp_sqrt(a):
+    """Square root in Fp (P = 3 mod 4). Returns None if `a` is not a QR."""
+    s = pow(a, (P + 1) // 4, P)
+    if s * s % P != a % P:
+        return None
+    return s
+
+
+def fp_sgn0(a):
+    """Sign of an Fp element: parity of the canonical representative."""
+    return a & 1
 
 
 # --- Fp2 = Fp[u]/(u^2+1) ---------------------------------------------------
@@ -117,6 +144,32 @@ def fp2_pow(a, e):
         base = fp2_sq(base)
         e >>= 1
     return result
+
+
+def fp2_sqrt(a):
+    """Square root in Fp2 (P = 3 mod 4), or None if `a` is not a QR:
+    a1 = a^((p-3)/4), x0 = a1 * a, alpha = a1 * x0 = a^((p-1)/2)."""
+    if a == FP2_ZERO:
+        return FP2_ZERO
+    a1 = fp2_pow(a, (P - 3) // 4)
+    x0 = fp2_mul(a1, a)
+    alpha = fp2_mul(a1, x0)
+    if alpha == ((-1) % P, 0):
+        x = fp2_mul((0, 1), x0)  # u * x0
+    else:
+        b = fp2_pow(fp2_add(FP2_ONE, alpha), (P - 1) // 2)
+        x = fp2_mul(b, x0)
+    if fp2_sq(x) != a:
+        return None
+    return x
+
+
+def fp2_sgn0(a):
+    """RFC 9380 sign of an Fp2 element."""
+    sign_0 = a[0] & 1
+    zero_0 = a[0] == 0
+    sign_1 = a[1] & 1
+    return sign_0 | (zero_0 & sign_1)
 
 
 # --- Frobenius coefficients ------------------------------------------------

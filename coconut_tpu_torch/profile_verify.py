@@ -1,7 +1,7 @@
 """Where the time of one batched verify or show verify goes, on the GPU.
 
     python3 -m coconut_tpu_torch.profile_verify
-        [--path verify|show|verify_combined|show_combined|grouped|prove]
+        [--path verify|show|verify_combined|show_combined|grouped|prove|issue]
         [--batch 1024] [--out FILE]
 
 Builds the path's entry fixture (B credentials, 6 attributes, one lane in 8
@@ -10,8 +10,10 @@ paths take the honest fixture, all lanes true, through ps.batch_verify /
 ps.batch_show_verify in mode "batched"; `grouped` the honest fixture
 through TorchBackend.batch_verify_grouped, one bool; `prove` the honest
 fixture through pok_sig.batch_show, revealing {2, 3, 4, 5}, its proofs
-checked by the spec verifier on 4 lanes), warms TorchBackend up once, then
-measures a warm batch three ways:
+checked by the spec verifier on 4 lanes; `issue` one threshold issuance
+round under G1 on entry.issue_fixture: prepare, blind-sign by the 5
+signers, unblind, aggregate over {1, 3, 5}, the credentials verified on the
+card), warms TorchBackend up once, then measures a warm batch three ways:
 
   stages    host wall time (synchronized) and kernel launches of each stage
             of the path: for `verify` host encode, comb MSM, affine
@@ -36,7 +38,13 @@ measures a warm batch three ways:
             the distinct MSM over G1 ([2B, 4] rows, 27 windows), the two
             comb MSMs over G2 (stacked into one), the affines of both, the
             pack of every coordinate (one carry scan), the decode, and
-            Fiat-Shamir with the responses; and the field kernel's
+            Fiat-Shamir with the responses; for `issue` the prepare step's
+            host draw and encode, the commitment and ElGamal programs, the
+            commitments' readback, expand_message_xmd and the upload of
+            the field candidates, the hash program, its readback, the h^m
+            encode, the h^m + offset program and the decode of g^k and c2,
+            then blind-sign (the 5 signers' encode, MSM and decode
+            summed), unblind and aggregate; and the field kernel's
             launches of that batch by width (lanes);
   profile   torch.profiler over one warm batch: device time by kernel name,
             the field kernel's device time and launches, total device-busy
@@ -55,6 +63,7 @@ import time
 import torch
 
 from . import entry, pok_sig, ps
+from . import signature as sig
 from .batchverify import derive_combiners, show_transcript, verify_transcript
 from .gpu import cuda_fp
 from .gpu import curve as cv
@@ -63,7 +72,11 @@ from .gpu import tower as tw
 from .gpu.backend import (
     _G_ENTRIES, TorchBackend, _combiner_digits, _decode_points, _grouped_horner,
     _grouped_tail_miller, _grouped_window_sums, _pack_pts, _pts_f32, _tree_fold_fp12,
+    hash_to_g1_program, msm_distinct_affine_program, msm_distinct_plus_offset_program,
+    msm_shared_many_program,
 )
+from .ops.fields import R
+from .sss import rand_fr
 
 
 def _stage(fn):
@@ -293,6 +306,113 @@ def prove_stages(be, sigs, msgs, vk, params, revealed):
     return res[0], out
 
 
+def issue_stages(be, fix):
+    """One G1 issuance round (batch_prepare_blind_sign's offset schedule,
+    then batch_blind_sign by each signer, batch_unblind of all of them,
+    batch_aggregate over {1, 3, 5}), stage by stage, each timed to a device
+    synchronize. Returns (the credentials, stages)."""
+    params, signers, esk, epk, msgs = fix
+    ctx, B, H = params.ctx, len(msgs), entry.ISSUANCE_HIDDEN
+    out = {}
+
+    def draw_encode():
+        rs = [rand_fr() for _ in range(B)]
+        ks = [[rand_fr() for _ in range(H)] for _ in range(B)]
+        flat_k = [[k] for row in ks for k in row]
+        jobs = [
+            [(list(params.h[:H]) + [params.g], [list(m[:H]) + [r] for m, r in zip(msgs, rs)])],
+            [([params.g], flat_k), ([epk], flat_k)],
+        ]
+        ops = [
+            [(be._comb_tables(False, b),) + be._comb_digits(sc) for b, sc in group]
+            for group in jobs
+        ]
+        return rs, ks, ops
+
+    (rs, ks, (commit_ops, elg_ops)), out["draw_encode"] = _stage(draw_encode)
+    (ch, eh), out["commit_elgamal_programs"] = _stage(
+        lambda: (msm_shared_many_program(cv.FP, commit_ops), msm_shared_many_program(cv.FP, elg_ops))
+    )
+    comms, out["commit_readback"] = _stage(lambda: be.msm_shared_many_wait(ch)[0])
+    known = [list(m[H:]) for m in msgs]
+    hops, out["expand_message_xmd"] = _stage(lambda: be.hash_operands([
+        sig.SignatureRequest.hash_input(c, kn, ctx) for c, kn in zip(comms, known)
+    ]))
+    hh, out["hash_program"] = _stage(lambda: hash_to_g1_program(*hops))
+    hs, out["hash_readback"] = _stage(lambda: be.hash_to_g1_wait(hh))
+
+    def hm_encode():
+        pts = [[h] for h in hs for _ in range(H)]
+        return be._distinct_operands(False, pts, [[m % R] for ms in msgs for m in ms[:H]])
+
+    (w, hm_ops), out["hm_encode"] = _stage(hm_encode)
+    c2h, out["hm_offset_program"] = _stage(
+        lambda: msm_distinct_plus_offset_program(cv.FP, *hm_ops, eh[1], window=w)
+    )
+
+    def decode():
+        gk = _decode_points(*eh[0])
+        c2s = be.msm_distinct_wait(c2h)
+        reqs = []
+        for i in range(B):
+            f = range(i * H, (i + 1) * H)
+            req = sig.SignatureRequest(known[i], comms[i], [(gk[j], c2s[j]) for j in f])
+            req._h_cache = hs[i]
+            reqs.append(req)
+        return reqs
+
+    reqs, out["prepare_decode"] = _stage(decode)
+    blind = {}
+    for s in signers:
+        rows, st_enc = _stage(lambda: sig.blind_sign_rows(reqs, s.sigkey, ctx))
+        (w, bops), st_enc2 = _stage(lambda: be._distinct_operands(False, rows[1], rows[2]))
+        handle, st_msm = _stage(lambda: msm_distinct_affine_program(cv.FP, *bops, window=w))
+
+        def bdecode():
+            pts = be.msm_distinct_wait(handle)
+            return [sig.BlindSignature(h, (a, b)) for h, a, b in zip(rows[0], pts[:B], pts[B:])]
+
+        blind[s.id], st_dec = _stage(bdecode)
+        for name, st in (("encode", st_enc), ("encode", st_enc2), ("msm", st_msm), ("decode", st_dec)):
+            acc = out.setdefault("blind_sign_" + name, {"s": 0.0, "launches": 0})
+            acc["s"] += st["s"]
+            acc["launches"] += st["launches"]
+    flat = [b for s in signers for b in blind[s.id]]
+    unblinded, out["unblind"] = _stage(lambda: sig.batch_unblind(flat, esk, ctx, be))
+    sub = (1, 3, 5)
+    rows = [[(j, unblinded[(j - 1) * B + i]) for j in sub] for i in range(B)]
+    creds, out["aggregate"] = _stage(
+        lambda: sig.batch_aggregate(entry.ISSUANCE_THRESHOLD, rows, ctx, be)
+    )
+    return creds, out
+
+
+def issue_round(be, fix, subsets=((1, 3, 5),)):
+    """One issuance round through the public batch functions on `be`:
+    prepare, blind-sign by every signer, unblind all of them in one call,
+    aggregate over each subset. Returns (outputs, walls in s, kernel
+    launches), each by stage, every stage ended by a device synchronize."""
+    params, signers, esk, epk, msgs = fix
+    ctx, B = params.ctx, len(msgs)
+    out, walls, launches = {}, {}, {}
+
+    def stage(name, fn):
+        out[name], st = _stage(fn)
+        walls[name], launches[name] = st["s"], st["launches"]
+
+    stage("prepare", lambda: sig.batch_prepare_blind_sign(msgs, entry.ISSUANCE_HIDDEN, epk, params, be))
+    reqs = [r for r, _ in out["prepare"]]
+    for s in signers:
+        stage("blind_sign_%d" % s.id, lambda: sig.batch_blind_sign(reqs, s.sigkey, params, be))
+    flat = [b for s in signers for b in out["blind_sign_%d" % s.id]]
+    stage("unblind", lambda: sig.batch_unblind(flat, esk, ctx, be))
+    for sub in subsets:
+        rows = [[(j, out["unblind"][(j - 1) * B + i]) for j in sub] for i in range(B)]
+        stage("aggregate_%s" % "".join(map(str, sub)),
+              lambda: sig.batch_aggregate(entry.ISSUANCE_THRESHOLD, rows, ctx, be))
+    return out, walls, launches
+
+
 def _schnorr_stages(out, ops):
     """The show programs' Schnorr stages and the pairing accumulator, into
     `out`. Returns (Schnorr bits [B], the accumulator)."""
@@ -391,7 +511,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--path",
-        choices=("verify", "show", "verify_combined", "show_combined", "grouped", "prove"),
+        choices=("verify", "show", "verify_combined", "show_combined", "grouped", "prove", "issue"),
         default="verify",
     )
     ap.add_argument("--batch", type=int, default=1024)
@@ -405,7 +525,23 @@ def main(argv=None):
     combined = args.path.endswith("_combined")
     if combined and args.batch & (args.batch - 1):
         raise SystemExit("profile_verify: the combined paths take a power-of-two batch")
-    if args.path == "prove":
+    if args.path == "issue":
+        fix = entry.issue_fixture(args.batch)
+        params, signers, _, _, msgs = fix
+        vk = sig.Verkey.aggregate(
+            entry.ISSUANCE_THRESHOLD, [(j, signers[j - 1].verkey) for j in (1, 3, 5)], params.ctx
+        )
+        expect = [True] * args.batch
+
+        def timed():  # the profiled batch: the round alone
+            return issue_round(be, fix)[0]["aggregate_135"]
+
+        run = lambda: be.batch_verify(timed(), msgs, vk, params)
+
+        def staged():
+            creds, st = issue_stages(be, fix)
+            return be.batch_verify(creds, msgs, vk, params), st
+    elif args.path == "prove":
         params, _, vk, sigs, msgs = entry.fixture(args.batch)
         revealed = set(entry.SHOW_REVEALED)
         expect = [True] * 4

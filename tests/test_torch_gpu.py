@@ -1,7 +1,9 @@
 """Card-only tests of the port: the CUDA Montgomery kernel against its plain
 PyTorch version on the GPU, the wrapper's checks, and the verify,
-show-verify, combined and grouped paths, the show prover and the show
-family under G2 on `cuda` against the same paths on the CPU.
+show-verify, combined and grouped paths, the show prover, the show
+family under G2, the device hash-to-G1, the bucketed distinct MSM and a
+threshold issuance round on `cuda` against the same paths on the CPU or
+the host spec.
 
 Marked `gpu`; each test skips where no CUDA card is present. On a machine
 with one: `python -m pytest tests/test_torch_gpu.py -q`. Tolerance: exact
@@ -12,10 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from coconut_tpu_torch import entry, pok_sig, ps
+from coconut_tpu_torch import elgamal, entry, keygen, pok_sig, ps
+from coconut_tpu_torch import signature as sig
 from coconut_tpu_torch.gpu import cuda_fp, fp
 from coconut_tpu_torch.gpu.backend import TorchBackend
 from coconut_tpu_torch.gpu.limbs import NLIMBS
+from coconut_tpu_torch.ops import hashing
+from coconut_tpu_torch.ops.curve import G1_GEN, g1
+from coconut_tpu_torch.ops.fields import R
+from coconut_tpu_torch.params import Params
 from torch_show_helpers import fields_of, seeded_randbelow
 
 pytestmark = pytest.mark.gpu
@@ -244,3 +251,62 @@ def test_g2_show_verify_on_cuda_matches_cpu(cuda):
     assert got == expect
     cpu = TorchBackend(device="cpu")
     assert ps.batch_show_verify(fproofs, vk, params, frms, backend=cpu) == got
+
+
+def test_hash_and_bucketed_msm_on_cuda(cuda):
+    """hash_to_g1_batch of 8 messages on the card (the empty one included)
+    equals the host spec; a G1 distinct MSM forced through the bucketed
+    schedule at window 5 ([4, 3] rows, an identity base and a zero scalar)
+    equals the spec. The kernel launched, the plain version never."""
+    be = TorchBackend()
+    launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    msgs = [b""] + [b"card-%d" % i for i in range(7)]
+    assert be.hash_to_g1_batch(msgs) == [hashing.hash_to_g1(m) for m in msgs]
+    rng = np.random.default_rng(5)
+    scal = [[int.from_bytes(rng.bytes(32), "little") % R for _ in range(3)] for _ in range(4)]
+    scal[1][2] = 0
+    pts = [[g1.mul(G1_GEN, s + 1) for s in row] for row in scal]
+    pts[2][0] = None
+    be.bucket_mode = 5
+    assert be.msm_g1_distinct(pts, scal) == [g1.msm(p, s) for p, s in zip(pts, scal)]
+    assert (be.msm_bucketed_dispatches, be.msm_bucket_window) == (1, 5)
+    assert cuda_fp.LAUNCHES > launches and cuda_fp.PLAIN_CALLS == plain
+
+
+def test_issuance_round_on_cuda_matches_the_spec(cuda, monkeypatch):
+    """B = 8 under G1, 2 hidden of 6, 3-of-5: prepare on the card (device
+    hash, c2 by the offset program) gives the host spec's requests byte for
+    byte from one seeded draw; signer 1's blind signatures, the unblinded
+    and the aggregated credentials ({1, 2, 3}: the others' partials from
+    the spec) equal the spec's, and every credential verifies on the card
+    under the aggregated verkey."""
+    seeded_randbelow(monkeypatch, 8)
+    params = Params.new(6, b"backend-test")
+    _, _, signers = keygen.trusted_party_SSS_keygen(3, 5, params)
+    esk, epk = elgamal.elgamal_keygen(params.ctx.sig, params.g)
+    msgs = [[(7 * i + j) * 0x1234567 % R for j in range(6)] for i in range(8)]
+    be = TorchBackend()
+    out = []
+    for backend in (be, ps.SPEC):
+        seeded_randbelow(monkeypatch, 88)
+        out.append(sig.batch_prepare_blind_sign(msgs, 2, epk, params, backend=backend))
+    ctx = params.ctx
+    assert [(r.to_bytes(ctx), k) for r, k in out[0]] == [(r.to_bytes(ctx), k) for r, k in out[1]]
+    assert (be.device_hash_batches, be.msm_offset_dispatches) == (1, 1)
+    reqs = [r for r, _ in out[0]]
+    partials = []
+    for s in signers[:3]:
+        spec = sig.batch_blind_sign(reqs, s.sigkey, params, ps.SPEC)
+        if s.id == 1:
+            card = sig.batch_blind_sign(reqs, s.sigkey, params, be)
+            assert [b.to_bytes(ctx) for b in card] == [b.to_bytes(ctx) for b in spec]
+        partials.append(spec)
+    flat = [b for part in partials for b in part]
+    unblinded = sig.batch_unblind(flat, esk, ctx, be)
+    spec_unblinded = sig.batch_unblind(flat, esk, ctx, ps.SPEC)
+    assert unblinded == spec_unblinded
+    rows = [[(n + 1, unblinded[n * 8 + i]) for n in range(3)] for i in range(8)]
+    creds = sig.batch_aggregate(3, rows, ctx, be)
+    assert creds == sig.batch_aggregate(3, rows, ctx, ps.SPEC)
+    vk = sig.Verkey.aggregate(3, [(s.id, s.verkey) for s in signers[:3]], ctx)
+    assert be.batch_verify(creds, msgs, vk, params) == [True] * 8

@@ -99,12 +99,17 @@ def test_jax_operands_through_port_fused_verify(setup, port_backend):
         assert p.dtype == t.dtype and torch.equal(p, t)
 
 
-def test_static_operand_cache(setup, port_backend):
+def test_static_operand_cache(setup):
+    """Its own backend, so the counts do not hang on which tests of the
+    module ran before it in this worker: the first encode misses, the
+    second hits."""
     params, vk, sigs, msgs_list, expect = setup
-    hits = port_backend.encode_cache_hits
-    port_backend.encode_verify_batch(sigs[:2], msgs_list[:2], vk, params)
-    assert port_backend.encode_cache_hits == hits + 1
-    assert port_backend.batch_verify([], [], vk, params) == []
+    be = TorchBackend(device="cpu")
+    be.encode_verify_batch(sigs[:2], msgs_list[:2], vk, params)
+    assert (be.encode_cache_hits, be.encode_cache_misses) == (0, 1)
+    be.encode_verify_batch(sigs[:2], msgs_list[:2], vk, params)
+    assert (be.encode_cache_hits, be.encode_cache_misses) == (1, 1)
+    assert be.batch_verify([], [], vk, params) == []
 
 
 def test_g2_assignment_is_a_later_slice(port_backend):
