@@ -98,13 +98,33 @@ Phases, one line each (plus the kernel table and the result line):
      GLV); its points equal the Horner schedule's and 8 lanes of the host
      spec MSM; then a G2 batch ([16, 4] rows) forced through the bucketed
      schedule at window 5 against the spec.
+ 16. serve: the online verify service and the checkpointed stream over a
+     fresh TorchBackend, on phase 4's credentials (one lane in 8 forged):
+     per_credential — CredentialService(max_batch=1024, max_wait_ms=50)
+     answers phase 4's batch once cold, then 4,096 requests (the batch
+     four times, shuffled, bulk lane) queued before start: every verdict
+     the expected one, no watchdog timeout, every executor HEALTHY;
+     served verifies/s beside phase 4's batch_verify rate and p50/p99 of
+     serve_latency_s; grouped — an honest batch all True from ONE grouped
+     check, then lane 511 forged: the dead-letter JSONL names exactly that
+     request, the rest True (wall, checks, bisections); batched — an
+     honest batch all True from ONE combined check; faults —
+     FaultyBackend(raise_on={0}) under RetryPolicy(max_attempts=2,
+     base_delay=0): exact bits, retries 1; lone request — one interactive
+     request on an idle service with pad_partial True and False, median
+     of 5 each; stream — verify_stream over 4 batches with a checkpoint,
+     pipeline_depth 1 and 2 (tallies 3,584 / 512 exact), and a run
+     stopped after 2 batches resumed to the same tallies; pool — served
+     verifies/s of half the backlog with one executor against two on the
+     same card.
 
 Each path's first call runs with the kernel's counts set to 0 just before
 it and read just after; the kernel table's `launches` is their sum, and
 `launches_by_path` holds each (g2_verify: the sum of its three paths';
 prove: the prover's and its two FS verifies'; show_g2: the prover's and
 its two verifies'; issue: the round's four stages'; issue_g2: the same;
-bucketed: its three MSMs').
+bucketed: its three MSMs'; serve: every run of the phase, counted from its
+start to its end, with no plain call allowed).
 
 Any failed check raises (non-zero exit). After the phases, a `done` line
 gives the script's seconds since start; then the kernel table, and last
@@ -114,17 +134,19 @@ Needs a CUDA card: without one it exits non-zero before printing results.
 
 import collections
 import json
+import os
 import random
 import secrets
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from coconut_tpu_torch import entry, pok_sig, ps, sss
+from coconut_tpu_torch import entry, metrics, pok_sig, ps, sss
 from coconut_tpu_torch import bench_fp_mul as kb
 from coconut_tpu_torch import signature as sig
 from coconut_tpu_torch.gpu import cuda_fp
@@ -133,8 +155,12 @@ from coconut_tpu_torch.gpu.limbs import MONT_R
 from coconut_tpu_torch.ops import hashing
 from coconut_tpu_torch.ops.curve import G1_GEN, G2_GEN, g1, g2
 from coconut_tpu_torch.ops.fields import P, R
+from coconut_tpu_torch.faults import DeadLetterLog, FaultyBackend
 from coconut_tpu_torch.profile_verify import issue_round, profile
+from coconut_tpu_torch.retry import RetryPolicy
+from coconut_tpu_torch.serve import CredentialService
 from coconut_tpu_torch.signature import fiat_shamir_challenge
+from coconut_tpu_torch.stream import verify_stream
 
 LANES = kb.MAIN_WIDTHS[-1]  # one fp12_mul at B = 1024: 54 base products per lane
 BATCH = kb.BATCH
@@ -923,6 +949,232 @@ def bucketed_phase(card):
     return launches
 
 
+SERVE_WAIT_MS = 50
+SERVE_COPIES = 4  # the serve phase's backlog: phase 4's batch four times
+
+
+class _Stop(Exception):
+    """Stops a stream between two batches."""
+
+
+def _served(svc, reqs, lane="bulk"):
+    """Queue every (sig, messages) request on a service that is not started,
+    start it, wait for every verdict and drain: (verdicts, seconds from
+    start to the last verdict, seconds spent submitting)."""
+    t0 = time.perf_counter()
+    futs = [svc.submit(s, m, lane=lane) for s, m in reqs]
+    submit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc.start()
+    got = [f.result(600.0) for f in futs]
+    wall = time.perf_counter() - t0
+    if not svc.drain(timeout=60.0):
+        raise AssertionError("the service did not drain")
+    return got, wall, submit_s
+
+
+def _expect_verdicts(got, want, what):
+    if got != want:
+        wrong = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError("%s: verdicts differ at requests %s" % (what, wrong[:16]))
+
+
+def _healthy(svc, what):
+    """No watchdog timeout since the last metrics reset, and every executor
+    of `svc` HEALTHY; returns the executors' states."""
+    states = {label: h.state for label, h in svc._healths.items()}
+    timeouts = metrics.get_count("serve_watchdog_timeouts")
+    if timeouts or any(st != "healthy" for st in states.values()):
+        raise AssertionError("%s: %d watchdog timeouts, executors %s" % (what, timeouts, states))
+    return states
+
+
+def serve_phase(card, honest, exact_rate):
+    """The online verify service and the checkpointed stream over a fresh
+    TorchBackend, on phase 4's credentials."""
+    params, _, vk, sigs, msgs = honest
+    fsigs, fmsgs, expect = entry.forge(params, sigs, msgs, every=FORGE_EVERY)
+    lanes = list(range(BATCH)) * SERVE_COPIES
+    random.Random(0x5E7E).shuffle(lanes)
+    backlog = [(fsigs[i], fmsgs[i]) for i in lanes]
+    backlog_expect = [expect[i] for i in lanes]
+    be = TorchBackend()  # cuda, window 9, raw wire
+    started = time.perf_counter()
+    cuda_fp.LAUNCHES = 0
+    cuda_fp.PLAIN_CALLS = 0
+    out = {}
+
+    def service(**kw):
+        kw.setdefault("max_batch", BATCH)
+        kw.setdefault("max_wait_ms", SERVE_WAIT_MS)
+        kw.setdefault("max_depth", 2 * len(backlog))
+        return CredentialService(kw.pop("backend", be), vk, params, **kw)
+
+    # per_credential: the batch once cold, then the shuffled backlog
+    metrics.reset()
+    svc = service()
+    got, cold_s, _ = _served(svc, zip(fsigs, fmsgs))
+    _expect_verdicts(got, expect, "cold batch")
+    _healthy(svc, "cold batch")
+    metrics.reset()
+    svc = service()
+    got, wall, submit_s = _served(svc, backlog)
+    _expect_verdicts(got, backlog_expect, "backlog")
+    states = _healthy(svc, "backlog")
+    lat = metrics.snapshot()["histograms"]["serve_latency_s"]
+    rate = len(backlog) / wall
+    out["per_credential"] = {
+        "cold_batch_s": cold_s, "requests": len(backlog), "wall_s": wall,
+        "submit_s": submit_s, "served_verifies_per_s": rate,
+        "batch_verify_per_s": exact_rate, "ratio_to_batch_verify": rate / exact_rate,
+        "latency_p50_s": lat["p50_s"], "latency_p99_s": lat["p99_s"],
+        "latency_max_s": lat["max_s"], "batches": metrics.get_count("serve_batches"),
+        "pad_lanes": metrics.get_count("serve_pad_lanes"), "executors": states,
+    }
+
+    # grouped: an honest batch, then lane 511 forged
+    mid = BATCH // 2 - 1
+    with tempfile.TemporaryDirectory() as tmp:
+        dl = os.path.join(tmp, "dead.jsonl")
+        metrics.reset()
+        checks0 = be.grouped_checks
+        svc = service(mode="grouped", dead_letter_path=dl)
+        got, honest_s, _ = _served(svc, zip(sigs, msgs))
+        _expect_verdicts(got, [True] * BATCH, "grouped, honest")
+        honest_checks = be.grouped_checks - checks0
+        checks0 = be.grouped_checks
+        svc = service(mode="grouped", dead_letter_path=dl)
+        got, forged_s, _ = _served(svc, zip(_forged_sigma_2(params, sigs, mid), msgs))
+        _expect_verdicts(got, [i != mid for i in range(BATCH)], "grouped, lane 511 forged")
+        named = [(r["credential"], r["program"]) for r in DeadLetterLog.read(dl)]
+    if honest_checks != 1 or named != [(mid, "verify")]:
+        raise AssertionError(
+            "grouped: %d checks on the honest batch, dead letters %s" % (honest_checks, named)
+        )
+    _healthy(svc, "grouped")
+    out["grouped"] = {
+        "honest_wall_s": honest_s, "honest_grouped_checks": honest_checks,
+        "forged_lane": mid, "forged_wall_s": forged_s,
+        "forged_grouped_checks": be.grouped_checks - checks0,
+        "bisections": metrics.get_count("bisections"), "dead_letters": named,
+    }
+
+    # batched: one combined check for an honest batch
+    metrics.reset()
+    checks0 = be.combined_checks
+    svc = service(mode="batched")
+    got, batched_s, _ = _served(svc, zip(sigs, msgs))
+    _expect_verdicts(got, [True] * BATCH, "batched, honest")
+    if be.combined_checks - checks0 != 1:
+        raise AssertionError("batched: %d combined checks" % (be.combined_checks - checks0))
+    _healthy(svc, "batched")
+    out["batched"] = {"wall_s": batched_s, "combined_checks": 1}
+
+    # faults: the first dispatch raises, the retry serves the batch
+    metrics.reset()
+    fb = FaultyBackend(be, raise_on={0})
+    svc = service(backend=fb, retry_policy=RetryPolicy(max_attempts=2, base_delay=0))
+    got, faults_s, _ = _served(svc, zip(fsigs, fmsgs))
+    _expect_verdicts(got, expect, "faults")
+    if metrics.get_count("retries") != 1 or fb.dispatches != 2:
+        raise AssertionError(
+            "faults: %d retries over %d dispatches" % (metrics.get_count("retries"), fb.dispatches)
+        )
+    _healthy(svc, "faults")
+    out["faults"] = {"wall_s": faults_s, "retries": 1, "dispatches": fb.dispatches}
+
+    # one interactive request on an idle service, padded and not
+    out["lone_request"] = {"max_wait_ms": SERVE_WAIT_MS}
+    for pad in (True, False):
+        metrics.reset()
+        svc = service(pad_partial=pad).start()
+        walls = []
+        for k in range(5):
+            lane = (FORGE_EVERY - 2 + k) % BATCH  # lanes 6-10: lane 7 forged
+            t0 = time.perf_counter()
+            ok = svc.submit(fsigs[lane], fmsgs[lane]).result(600.0)
+            walls.append(time.perf_counter() - t0)
+            if ok != expect[lane]:
+                raise AssertionError("lone request on lane %d: wrong verdict" % lane)
+        if not svc.drain(timeout=60.0):
+            raise AssertionError("the service did not drain")
+        _healthy(svc, "lone request")
+        out["lone_request"]["padded" if pad else "unpadded"] = {
+            "median_s": statistics.median(walls), "walls_s": walls,
+            "pad_lanes": metrics.get_count("serve_pad_lanes"),
+        }
+
+    # stream: 4 batches with a checkpoint at depths 1 and 2, then a stop
+    # after 2 batches and a resume
+    tallies = (SERVE_COPIES * expect.count(True), SERVE_COPIES * expect.count(False))
+    source = lambda i: (fsigs, fmsgs)
+    out["stream"] = {"batches": SERVE_COPIES, "tallies": tallies}
+    with tempfile.TemporaryDirectory() as tmp:
+        for depth in (1, 2):
+            t0 = time.perf_counter()
+            st = verify_stream(
+                source, SERVE_COPIES, vk, params, be,
+                state_path=os.path.join(tmp, "depth%d.json" % depth), pipeline_depth=depth,
+            )
+            wall = time.perf_counter() - t0
+            if (st.next_batch, st.verified, st.failed) != (SERVE_COPIES,) + tallies:
+                raise AssertionError("stream at depth %d: tallies %s" % (depth, vars(st)))
+            out["stream"]["depth_%d" % depth] = {
+                "wall_s": wall, "verifies_per_s": SERVE_COPIES * BATCH / wall,
+            }
+
+        stop = SERVE_COPIES // 2
+
+        def stopping(i):
+            if i == stop:
+                raise _Stop()
+            return source(i)
+
+        path = os.path.join(tmp, "resume.json")
+        try:
+            verify_stream(stopping, SERVE_COPIES, vk, params, be, state_path=path,
+                          pipeline_depth=1)
+            raise AssertionError("the stream did not stop")
+        except _Stop:
+            pass
+        with open(path) as f:
+            stopped_at = json.load(f)["payload"]["next_batch"]
+        st = verify_stream(source, SERVE_COPIES, vk, params, be, state_path=path)
+        if stopped_at != stop or (st.next_batch, st.verified, st.failed) != (SERVE_COPIES,) + tallies:
+            raise AssertionError("resume from %d gave %s" % (stopped_at, vars(st)))
+        out["stream"]["resumed_from"] = stopped_at
+
+    # the pool: one executor against two on the same card, on half the
+    # backlog (two batches)
+    half = len(backlog) // 2
+    out["pool"] = {"requests": half}
+    for n in (1, 2):
+        metrics.reset()
+        svc = service(devices=[torch.device("cuda", 0)] * n)
+        got, wall, _ = _served(svc, backlog[:half])
+        _expect_verdicts(got, backlog_expect[:half], "pool of %d" % n)
+        _healthy(svc, "pool of %d" % n)
+        out["pool"]["devices_%d" % n] = {
+            "wall_s": wall, "served_verifies_per_s": half / wall,
+            "dispatches": {
+                k: v for k, v in metrics.counters_with_prefix("serve_dev").items()
+                if k.endswith("_dispatches")
+            },
+        }
+    out["pool"]["ratio"] = (
+        out["pool"]["devices_2"]["served_verifies_per_s"]
+        / out["pool"]["devices_1"]["served_verifies_per_s"]
+    )
+
+    launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    if launches == 0 or plain:
+        raise AssertionError("serve phase: %d launches, %d plain calls" % (launches, plain))
+    log("serve", batch=BATCH, attrs=entry.MSG_COUNT, window=be.window, **out,
+        launches=launches, plain_calls=plain, seconds=time.perf_counter() - started,
+        card=card)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
@@ -958,6 +1210,7 @@ def main():
     by_path["issue"], _ = issue_phase(card)
     by_path["issue_g2"] = issue_g2_phase(card)
     by_path["bucketed"] = bucketed_phase(card)
+    by_path["serve"] = serve_phase(card, vhonest, vrate)
     log("done", seconds=time.perf_counter() - started, card=card)
     kern["launches"] = sum(by_path.values())
     kern["launches_by_path"] = by_path

@@ -19,6 +19,13 @@ layout and names and imports nothing from it:
            the protocol layer: the spec verifiers, the show prover (spec
            and batched), Fiat-Shamir, the batch checks and ladders, their
            combiners, and the errors they raise
+  backend.py
+           the host spec backend (the services' fallback and bisection
+           oracle) and the backend registry ("torch", "spec")
+  serve/, engine/, stream.py, retry.py, faults.py, metrics.py, obs/,
+  state/   the host layers: the online verify service CredentialService
+           on its execution engine, the checkpointed verify_stream, the
+           retry / fault / dead-letter supervision, metrics and tracing
 
 Entry points run on `cuda` unless the caller passes device="cpu".
 """

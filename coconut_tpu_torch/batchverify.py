@@ -18,6 +18,8 @@ runs replay bit for bit.
 
 lambda is COCONUT_BATCH_LAMBDA: default 128, at least 64, at most 128 (the
 combined programs' digit schedule carries 128-bit exponents).
+COCONUT_BATCH_VERIFY (`env_batched_default`) puts new services on mode
+"batched".
 """
 
 import hashlib
@@ -41,6 +43,15 @@ def batch_lambda():
     if raw is None:
         return DEFAULT_LAMBDA
     return _check_lambda(int(raw))
+
+
+def env_batched_default():
+    """True when COCONUT_BATCH_VERIFY selects the batched (RLC combined)
+    verify path by default — the serve mode knob. Accepts "1", "true",
+    "on", "yes" or "batched" (any case); anything else, unset included,
+    keeps the exact per-lane default."""
+    raw = os.environ.get("COCONUT_BATCH_VERIFY", "")
+    return raw.strip().lower() in ("1", "true", "on", "yes", "batched")
 
 
 def _check_lambda(lam):

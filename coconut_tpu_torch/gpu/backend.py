@@ -54,6 +54,7 @@ in G1, the default) and "G2" (the roles of the groups swap).
 
 import os
 import secrets
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -187,23 +188,38 @@ def _build_tables(spec_ops, bases, entries, device):
     return tw.tree_map(lambda t: t.reshape((k, entries) + t.shape[1:]), tree)
 
 
+def device_slot(device):
+    """The card a tensor made for `device` lands on: the index of a CUDA
+    device, the current CUDA device's for a bare `cuda` (so tensors
+    follow `torch.cuda.device(...)`, the serve layer's placement seam),
+    None for the CPU. The backend's caches carry it in their keys, so an
+    entry made on one card never serves another."""
+    if device.type != "cuda":
+        return None
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
 class _LRU:
-    """Small least-recently-used map (dict insertion order + move-to-end)."""
+    """Small least-recently-used map (dict insertion order + move-to-end),
+    safe under the serve layer's executor threads."""
 
     def __init__(self, maxsize):
         self.maxsize = maxsize
         self._d = OrderedDict()
+        self._lock = threading.Lock()
 
     def get(self, key):
-        val = self._d.get(key)
-        if val is not None:
-            self._d.move_to_end(key)
-        return val
+        with self._lock:
+            val = self._d.get(key)
+            if val is not None:
+                self._d.move_to_end(key)
+            return val
 
     def put(self, key, val):
-        while len(self._d) >= self.maxsize:
-            self._d.popitem(last=False)
-        self._d[key] = val
+        with self._lock:
+            while len(self._d) >= self.maxsize:
+                self._d.popitem(last=False)
+            self._d[key] = val
 
 
 class PackedPoints(tuple):
@@ -819,7 +835,7 @@ class TorchBackend:
     def _comb_tables(self, is_fp2, bases):
         """Per-base-set comb tables in G2 (is_fp2) or G1, LRU-cached (the
         hot users verify many batches under one verkey)."""
-        key = (self.window, is_fp2, tuple(bases))
+        key = (self.window, is_fp2, tuple(bases), device_slot(self.device))
         wt = self._comb_cache.get(key)
         if wt is None:
             spec, fl = (_g2, cv.FP2) if is_fp2 else (_g1, cv.FP)
@@ -833,7 +849,8 @@ class TorchBackend:
         under the program kind ("verify" / "show" / "grouped"), the verkey
         and params coordinate ints, the comb window and `extra` (the show
         path's revealed-index set): each program and each revealed set gets
-        its own entry, as in the reference."""
+        its own entry, as in the reference — and each card its own
+        (`device_slot`)."""
         key = (
             kind,
             params.ctx.name,
@@ -843,6 +860,7 @@ class TorchBackend:
             params.g_tilde,
             self.window,
             extra,
+            device_slot(self.device),
         )
         val = self._static_cache.get(key)
         if val is not None:

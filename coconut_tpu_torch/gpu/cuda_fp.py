@@ -7,7 +7,9 @@ at first use and loaded with ctypes); for CPU tensors it runs `mul_plain`,
 the same function in PyTorch. Nothing falls back: a CUDA tensor goes to the
 kernel or raises. `LAUNCHES` counts kernel launches and `PLAIN_CALLS`
 counts calls of the plain version, so a run can show which one it took;
-`LAUNCH_WIDTHS` counts the launches by their number of lanes.
+`LAUNCH_WIDTHS` counts the launches by their number of lanes. The serve
+layer's executor threads call the wrapper concurrently: the build and the
+library load run under one module lock, and the counts under another.
 
 The plain version repeats the kernel's pipeline step for step (see the
 note at the top of fp_mul.cu and gpu/fp.py) in float64: a * b as sums of
@@ -23,6 +25,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -52,6 +55,8 @@ PLAIN_CALLS = 0   # calls of `mul_plain`
 BUILD_LOG = ""    # nvcc's output (ptxas' report) from the build of the library
 
 _LIB = None
+_BUILD_LOCK = threading.Lock()  # build() and the library load in _lib()
+_COUNT_LOCK = threading.Lock()  # LAUNCHES, LAUNCH_WIDTHS, PLAIN_CALLS
 
 
 # --- build and bind ---------------------------------------------------------
@@ -72,7 +77,14 @@ def build():
     """Compile fp_mul.cu into BUILD_DIR unless a library built from the same
     source and flags is already there; returns the library's path. The
     name carries a hash of both, so an edited source never loads a stale
-    library. nvcc's output is kept beside it and read into BUILD_LOG."""
+    library. nvcc's output is kept beside it and read into BUILD_LOG.
+    Threads of one process serialize on a module lock; the temporary file
+    carries the process and thread ids."""
+    with _BUILD_LOCK:
+        return _build_locked()
+
+
+def _build_locked():
     global BUILD_LOG
     tag = hashlib.sha256(
         SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
@@ -83,7 +95,9 @@ def build():
         BUILD_LOG = log.read_text() if log.exists() else ""
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(lib.name + ".%d.tmp" % os.getpid())
+    tmp = lib.with_name(
+        lib.name + ".%d.%d.tmp" % (os.getpid(), threading.get_ident())
+    )
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
         capture_output=True,
@@ -98,23 +112,26 @@ def build():
 
 
 def _lib():
+    """The loaded library, built and bound on first use (once, under the
+    module lock)."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.coconut_fp_mul
-        fn.argtypes = [
-            ctypes.c_void_p,  # a
-            ctypes.c_void_p,  # b
-            ctypes.c_void_p,  # consts
-            ctypes.c_void_p,  # out
-            ctypes.c_longlong,  # n
-            ctypes.c_void_p,  # stream
-        ]
-        fn.restype = ctypes.c_int
-        lib.coconut_fp_mul_group.argtypes = []
-        lib.coconut_fp_mul_group.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    with _BUILD_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(_build_locked()))
+            fn = lib.coconut_fp_mul
+            fn.argtypes = [
+                ctypes.c_void_p,  # a
+                ctypes.c_void_p,  # b
+                ctypes.c_void_p,  # consts
+                ctypes.c_void_p,  # out
+                ctypes.c_longlong,  # n
+                ctypes.c_void_p,  # stream
+            ]
+            fn.restype = ctypes.c_int
+            lib.coconut_fp_mul_group.argtypes = []
+            lib.coconut_fp_mul_group.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
 
 
 def group():
@@ -185,8 +202,9 @@ def launch(a, b, out):
         )
     if err != 0:
         raise RuntimeError("fp_mul kernel launch failed: CUDA error %d" % err)
-    LAUNCHES += 1
-    LAUNCH_WIDTHS[n] += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCH_WIDTHS[n] += 1
     return out
 
 
@@ -247,7 +265,8 @@ def _norm(t, passes):
 def mul_plain(a, b):
     """The kernel's function in plain PyTorch, on any device."""
     global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    with _COUNT_LOCK:
+        PLAIN_CALLS += 1
     by_nprime, by_p = _plain_consts(a.device)
     shape = torch.broadcast_shapes(a.shape, b.shape)
     a1 = _norm(_flat(a, shape).double(), 2)  # |limbs| <= 132

@@ -1,9 +1,10 @@
 """Card-only tests of the port: the CUDA Montgomery kernel against its plain
 PyTorch version on the GPU, the wrapper's checks, and the verify,
 show-verify, combined and grouped paths, the show prover, the show
-family under G2, the device hash-to-G1, the bucketed distinct MSM and a
-threshold issuance round on `cuda` against the same paths on the CPU or
-the host spec.
+family under G2, the device hash-to-G1, the bucketed distinct MSM, a
+threshold issuance round and the online verify service on `cuda` against
+the same paths on the CPU or the host spec, and the kernel's counts under
+threads.
 
 Marked `gpu`; each test skips where no CUDA card is present. On a machine
 with one: `python -m pytest tests/test_torch_gpu.py -q`. Tolerance: exact
@@ -310,3 +311,52 @@ def test_issuance_round_on_cuda_matches_the_spec(cuda, monkeypatch):
     assert creds == sig.batch_aggregate(3, rows, ctx, ps.SPEC)
     vk = sig.Verkey.aggregate(3, [(s.id, s.verkey) for s in signers[:3]], ctx)
     assert be.batch_verify(creds, msgs, vk, params) == [True] * 8
+
+
+def test_kernel_counts_are_exact_under_threads(cuda):
+    """4 threads x 50 launches each add exactly 200 to LAUNCHES (and 200
+    to the width's count), and every product equals the plain version's."""
+    import threading
+
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(_lazy(rng, 33)).to(cuda)
+    b = torch.from_numpy(_lazy(rng, 33)).to(cuda)
+    want = cuda_fp.mul_plain(a, b)
+    launches, width = cuda_fp.LAUNCHES, cuda_fp.LAUNCH_WIDTHS[33]
+    wrong = []
+    start = threading.Barrier(4)
+
+    def work():
+        start.wait()
+        for _ in range(50):
+            out = cuda_fp.mul(a, b)
+            if not torch.equal(out, want):
+                wrong.append(1)
+
+    threads = [threading.Thread(target=work) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not wrong
+    assert cuda_fp.LAUNCHES == launches + 200
+    assert cuda_fp.LAUNCH_WIDTHS[33] == width + 200
+
+
+def test_credential_service_on_cuda_matches_batch_verify(cuda):
+    """The port's CredentialService on the card at max_batch=64: 100
+    requests (one in 8 forged) in two batches, the second padded, give the
+    bits of TorchBackend.batch_verify, with no plain call."""
+    from coconut_tpu_torch.serve import CredentialService
+
+    params, _, vk, sigs, msgs = entry.fixture(100)
+    sigs, msgs, expect = entry.forge(params, sigs, msgs, every=8)
+    be = TorchBackend()
+    assert be.batch_verify(sigs, msgs, vk, params) == expect
+    plain = cuda_fp.PLAIN_CALLS
+    with CredentialService(be, vk, params, max_batch=64, max_wait_ms=20.0) as svc:
+        futs = [svc.submit(s, m) for s, m in zip(sigs, msgs)]
+        got = [f.result(300.0) for f in futs]
+    assert got == expect
+    assert cuda_fp.PLAIN_CALLS == plain
