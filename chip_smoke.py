@@ -117,14 +117,38 @@ Phases, one line each (plus the kernel table and the result line):
      stopped after 2 batches resumed to the same tallies; pool — served
      verifies/s of half the backlog with one executor against two on the
      same card.
+ 17. issue_service: the threshold-issuance service (BASELINE config 4,
+     G1, 1,024 users with an ElGamal key pair each, 3-of-5): requests from
+     batch_prepare_blind_sign with the 1,024 public keys on the card, then
+     IssuanceService(backend=None, max_batch=1024, max_wait_ms=50) — five
+     authorities over one cuda TorchBackend — mints them in one cold
+     fan-out, then a backlog of 2,048 orders (the 1,024 twice, shuffled)
+     queued before start: served issued credentials/s beside phase 13's
+     bare round in the same process, issue_latency_s p50 / p99, the
+     authorities' dispatches, minted and hedge counts, the verkey-table
+     builds of the subsets. Gates: all 3,072 credentials verify on the
+     card under the subsets' aggregated verkey, 16 lanes equal the host
+     spec's Signature.aggregate of BlindSignature.new partials under a
+     subset no fan-out used, no watchdog timeout, every authority
+     HEALTHY. Faults at B = 64: authority 2 crashing and authority 3
+     hanging (a 15 s watchdog budget expires the hang) — all 64 mint and
+     verify, one crash, both QUARANTINED; a corrupt partial from
+     authority 2 while 4 and 5 wait — lane 0 held back, the partial
+     attributed, every credential verifies; authorities 1-3 crashing —
+     every future fails with QuorumUnreachableError. Mixed load:
+     run_loadgen, open loop at half the bare issuance rate for 10 s, half
+     the arrivals to the issuance service, half to a CredentialService
+     (None, max_batch=1024) over phase 17's first 1,024 credentials (one
+     in 8 forged): 0 mismatches, 0 drops, 0 terminal errors; both
+     sections' p50 / p99 and goodput.
 
 Each path's first call runs with the kernel's counts set to 0 just before
 it and read just after; the kernel table's `launches` is their sum, and
 `launches_by_path` holds each (g2_verify: the sum of its three paths';
 prove: the prover's and its two FS verifies'; show_g2: the prover's and
 its two verifies'; issue: the round's four stages'; issue_g2: the same;
-bucketed: its three MSMs'; serve: every run of the phase, counted from its
-start to its end, with no plain call allowed).
+bucketed: its three MSMs'; serve and issue_service: every run of the
+phase, counted from its start to its end, with no plain call allowed).
 
 Any failed check raises (non-zero exit). After the phases, a `done` line
 gives the script's seconds since start; then the kernel table, and last
@@ -133,6 +157,7 @@ Needs a CUDA card: without one it exits non-zero before printing results.
 """
 
 import collections
+import itertools
 import json
 import os
 import random
@@ -141,6 +166,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -155,10 +181,13 @@ from coconut_tpu_torch.gpu.limbs import MONT_R
 from coconut_tpu_torch.ops import hashing
 from coconut_tpu_torch.ops.curve import G1_GEN, G2_GEN, g1, g2
 from coconut_tpu_torch.ops.fields import P, R
+from coconut_tpu_torch.errors import QuorumUnreachableError
 from coconut_tpu_torch.faults import DeadLetterLog, FaultyBackend
+from coconut_tpu_torch.issue import IssuanceService
 from coconut_tpu_torch.profile_verify import issue_round, profile
 from coconut_tpu_torch.retry import RetryPolicy
-from coconut_tpu_torch.serve import CredentialService
+from coconut_tpu_torch.serve import CredentialService, run_loadgen
+from coconut_tpu_torch.serve.health import HealthPolicy, Watchdog
 from coconut_tpu_torch.signature import fiat_shamir_challenge
 from coconut_tpu_torch.stream import verify_stream
 
@@ -1175,6 +1204,280 @@ def serve_phase(card, honest, exact_rate):
     return launches
 
 
+ISSUE_COPIES = 2  # the issuance backlog: the 1,024 orders twice
+FAULT_BATCH = 64  # the fault gates' orders (a gate, not a rate)
+HANG_BUDGET_S = 15.0  # the fault service's first watchdog budget
+MIXED_SECONDS = 10.0
+
+
+class _Gated:
+    """An authority backend that signs on the card only once `release` is
+    set: pins the first three partials to the other authorities."""
+
+    def __init__(self, be, release):
+        self.be, self.release = be, release
+
+    def batch_blind_sign(self, reqs, sigkey, params):
+        if not self.release.wait(600.0):
+            raise AssertionError("gate never released")
+        return sig.batch_blind_sign(reqs, sigkey, params, self.be)
+
+
+def _minted(svc, orders, what):
+    """Queue every order on a service that is not started, start it, wait
+    for every credential: (credentials, seconds from start to the last)."""
+    futs = [svc.submit(req, m, sk) for req, m, sk in orders]
+    t0 = time.perf_counter()
+    svc.start()
+    creds = [f.result(900.0) for f in futs]
+    wall = time.perf_counter() - t0
+    if len(creds) != len(orders):
+        raise AssertionError("%s: %d credentials" % (what, len(creds)))
+    return creds, wall
+
+
+def _drained(svc, what):
+    if not svc.drain(timeout=120.0):
+        raise AssertionError("%s: the service did not drain" % what)
+
+
+def _verified(be, creds, msgs, vk, params, what):
+    """Every credential verifies on the card under `vk`, 1,024 at a time."""
+    for lo in range(0, len(creds), BATCH):
+        got = be.batch_verify(creds[lo : lo + BATCH], msgs[lo : lo + BATCH], vk, params)
+        if got != [True] * len(got):
+            raise AssertionError("%s: %d credentials fail" % (what, got.count(False)))
+
+
+def _auth_counts():
+    return {
+        k: v for k, v in sorted(metrics.counters_with_prefix("issue_auth").items())
+        if k.endswith("_dispatches")
+    }
+
+
+def _issue_counts():
+    return {k: metrics.get_count("issue_" + k) for k in (
+        "minted", "hedges", "hedge_no_spare", "partials_discarded", "cancelled_signs",
+        "sign_skips", "corrupt_partials", "authority_crashes", "watchdog_timeouts",
+        "quorum_unreachable", "redispatched", "failed_requests", "batches",
+    )}
+
+
+def _wait_for(pred, what, timeout=300.0):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError("timed out waiting for %s" % what)
+        time.sleep(0.01)
+
+
+def issue_service_phase(card, bare_rate):
+    """The threshold-issuance service (BASELINE config 4, G1, 1,024 users
+    with a key pair each, 3-of-5) on the card: one cold fan-out, a backlog
+    of 2,048 orders, the fault gates at B = 64 and the mixed verify + issue
+    load."""
+    started = time.perf_counter()
+    cuda_fp.LAUNCHES = 0
+    cuda_fp.PLAIN_CALLS = 0
+    t0 = time.perf_counter()
+    params, signers, esks, epks, msgs = entry.issue_fixture(BATCH, user_keys=True)
+    fixture_s = time.perf_counter() - t0
+    t = entry.ISSUANCE_THRESHOLD
+    out = {"fixture_s": fixture_s}
+
+    # the users' requests, each under its own ElGamal key, on the card
+    pbe = TorchBackend()
+    t0 = time.perf_counter()
+    with entry.seeded_draws(0x0DE5):
+        prepared = sig.batch_prepare_blind_sign(msgs, entry.ISSUANCE_HIDDEN, epks, params, pbe)
+    out["prepare_s"] = time.perf_counter() - t0
+    orders = [(req, m, sk) for (req, _), m, sk in zip(prepared, msgs, esks)]
+
+    # one cold fan-out, then the backlog on a service over the warm backend
+    metrics.reset()
+    svc = IssuanceService(signers, params, t, backend=None, max_batch=BATCH,
+                          max_wait_ms=SERVE_WAIT_MS)
+    be = svc.minter.backend
+    if be.device.type != "cuda" or any(a.backend is not be for a in svc._authorities):
+        raise AssertionError("backend=None is not one cuda TorchBackend for every authority")
+    cold, cold_s = _minted(svc, orders, "cold fan-out")
+    _drained(svc, "cold fan-out")
+    cold_counts = _issue_counts()
+    cold_builds = be.encode_cache_misses
+    lanes = list(range(BATCH)) * ISSUE_COPIES
+    random.Random(0x155E).shuffle(lanes)
+    metrics.reset()
+    misses = be.encode_cache_misses
+    svc = IssuanceService(signers, params, t, backend=be, max_batch=BATCH,
+                          max_wait_ms=SERVE_WAIT_MS, max_depth=2 * len(lanes))
+    creds, wall = _minted(svc, [orders[i] for i in lanes], "backlog")
+    hists = metrics.snapshot()["histograms"]
+    lat = hists["issue_latency_s"]
+    quorum_wait = hists["issue_quorum_wait_s"]
+    counts = _issue_counts()
+    auth_counts = _auth_counts()
+    auth_busy = metrics.timers_with_prefix("issue_auth")
+    _drained(svc, "backlog")
+    if counts["watchdog_timeouts"] or cold_counts["watchdog_timeouts"]:
+        raise AssertionError("issuance watchdog timeouts: %s, %s" % (cold_counts, counts))
+    states = {a.label: svc._health_of(a.label).state for a in svc._authorities}
+    if any(st != "healthy" for st in states.values()):
+        raise AssertionError("authorities %s" % states)
+    rate = len(lanes) / wall
+
+    # every credential verifies under the subsets' aggregated verkey (one
+    # verkey whatever the subset), and 16 lanes equal the spec's aggregate
+    # under a subset no fan-out used
+    used = sorted(svc.minter._agg_cache)
+    vks = list(svc.minter._agg_cache.values())
+    if any(v != vks[0] for v in vks):
+        raise AssertionError("the subsets' aggregated verkeys differ")
+    vk = vks[0]
+    all_creds = cold + creds
+    all_msgs = msgs + [msgs[i] for i in lanes]
+    t0 = time.perf_counter()
+    _verified(be, all_creds, all_msgs, vk, params, "minted credentials")
+    verify_s = time.perf_counter() - t0
+    other = next(s for s in itertools.combinations(range(1, 6), t) if s not in used)
+    ctx = params.ctx
+    spot = list(range(0, BATCH, max(1, BATCH // 16)))
+    for i in spot:
+        req, m, sk = orders[i]
+        parts = [(j, sig.BlindSignature.new(req, signers[j - 1].sigkey, params).unblind(sk, ctx))
+                 for j in other]
+        want = sig.Signature.aggregate(t, parts, ctx)
+        if cold[i] != want or any(creds[k] != want for k, lane in enumerate(lanes) if lane == i):
+            raise AssertionError("lane %d differs from the spec's aggregate under %s" % (i, other))
+    out["served"] = {
+        "cold_fanout_s": cold_s, "cold_counts": cold_counts, "requests": len(lanes),
+        "wall_s": wall, "issued_credentials_per_s": rate, "bare_round_per_s": bare_rate,
+        "ratio_to_bare_round": rate / bare_rate, "latency_p50_s": lat["p50_s"],
+        "latency_p99_s": lat["p99_s"], "latency_max_s": lat["max_s"], "counts": counts,
+        "quorum_wait_p50_s": quorum_wait["p50_s"], "quorum_wait_max_s": quorum_wait["max_s"],
+        "authority_dispatches": auth_counts, "authority_busy_s": auth_busy, "authorities": states,
+        "subsets_used": [list(s) for s in used],
+        "verkey_table_builds": {"cold": cold_builds, "backlog": be.encode_cache_misses - misses},
+        "verified": len(all_creds), "verify_s": verify_s, "spec_lanes": len(spot),
+        "spec_subset": list(other),
+    }
+
+    # faults at B = 64: a crashed and a hung authority, a corrupt partial,
+    # then three crashed authorities
+    few = orders[:FAULT_BATCH]
+    few_msgs = msgs[:FAULT_BATCH]
+    patient = HealthPolicy(probe_after_s=600.0)
+    metrics.reset()
+    crash = FaultyBackend(be, crash_sign_on=(0,))
+    hang = FaultyBackend(be, hang_sign_on=(0,), hang_max_s=600.0)
+    svc = IssuanceService(
+        signers, params, t, backend=be, backends=[be, crash, hang, be, be],
+        max_batch=FAULT_BATCH, max_wait_ms=SERVE_WAIT_MS, health_policy=patient,
+        watchdog=Watchdog(initial_timeout_s=HANG_BUDGET_S),
+    )
+    t0 = time.perf_counter()
+    try:
+        got, crash_s = _minted(svc, few, "crash and hang")
+        _verified(be, got, few_msgs, vk, params, "crash and hang")
+        _wait_for(lambda: metrics.get_count("issue_watchdog_timeouts") == 1, "the hang's expiry")
+        expired_s = time.perf_counter() - t0
+    finally:
+        hang.hang_release.set()
+    _drained(svc, "crash and hang")
+    states = {a.label: svc._health_of(a.label).state for a in svc._authorities}
+    if (crash.crashes, metrics.get_count("issue_authority_crashes"), states["2"], states["3"]) != (
+        1, 1, "quarantined", "quarantined"
+    ) or metrics.get_count("issue_minted") != FAULT_BATCH:
+        raise AssertionError("crash and hang: %s, %s" % (states, _issue_counts()))
+    out["crash_and_hang"] = {"wall_s": crash_s, "hang_expired_after_s": expired_s,
+                             "states": states, "counts": _issue_counts()}
+
+    metrics.reset()
+    release = threading.Event()
+    corrupt = FaultyBackend(be, corrupt_partial_on=(0,))
+    svc = IssuanceService(
+        signers, params, t, backend=be,
+        backends=[be, corrupt, be, _Gated(be, release), _Gated(be, release)],
+        max_batch=FAULT_BATCH, max_wait_ms=SERVE_WAIT_MS,
+        health_policy=HealthPolicy(suspect_after=1, quarantine_after=1, probe_after_s=600.0),
+    )
+    futs = [svc.submit(req, m, sk) for req, m, sk in few]
+    t0 = time.perf_counter()
+    try:
+        svc.start()
+        _wait_for(lambda: metrics.get_count("issue_corrupt_partials") == 1, "attribution")
+        # the corrupt partial is lane 0's: the round released the other
+        # lanes (they verified) and held lane 0 back
+        if futs[0].done():
+            raise AssertionError("lane 0 left the corrupt round")
+    finally:
+        release.set()
+    got = [f.result(900.0) for f in futs]
+    corrupt_s = time.perf_counter() - t0
+    _drained(svc, "corrupt partial")
+    _verified(be, got, few_msgs, vk, params, "corrupt partial")
+    if (corrupt.corrupted_partials, metrics.get_count("issue_corrupt_partials"),
+            metrics.get_count("issue_minted"), svc._health_of("2").state) != (
+            1, 1, FAULT_BATCH, "quarantined"):
+        raise AssertionError("corrupt partial: %s" % _issue_counts())
+    out["corrupt_partial"] = {"wall_s": corrupt_s, "counts": _issue_counts()}
+
+    metrics.reset()
+    crashes = [FaultyBackend(be, crash_sign_on=(0,)) for _ in range(3)]
+    svc = IssuanceService(signers, params, t, backend=be, backends=crashes + [be, be],
+                          max_batch=FAULT_BATCH, max_wait_ms=SERVE_WAIT_MS, health_policy=patient)
+    futs = [svc.submit(req, m, sk) for req, m, sk in few]
+    t0 = time.perf_counter()
+    svc.start()
+    errs = [f.exception(900.0) for f in futs]
+    loss_s = time.perf_counter() - t0
+    _drained(svc, "quorum loss")
+    if not all(isinstance(e, QuorumUnreachableError) for e in errs) or not all(f.done() for f in futs):
+        raise AssertionError("quorum loss: %s" % sorted({type(e).__name__ for e in errs}))
+    out["quorum_loss"] = {"typed_failures": len(errs), "wall_s": loss_s, "counts": _issue_counts()}
+
+    # mixed verify + issue load, open loop at half the bare issuance rate
+    vsigs, vmsgs, expect = entry.forge(params, cold, msgs, every=FORGE_EVERY)
+    pool = list(zip(vsigs, vmsgs, expect))
+    metrics.reset()
+    vsvc = CredentialService(None, vk, params, max_batch=BATCH).start()
+    isvc = IssuanceService(signers, params, t, backend=be, max_batch=BATCH,
+                           max_wait_ms=SERVE_WAIT_MS, max_depth=4 * BATCH).start()
+    try:
+        report = run_loadgen(
+            vsvc, pool, duration_s=MIXED_SECONDS, arrival="open", rate_per_s=bare_rate / 2,
+            rng=random.Random(0x3117), result_timeout=900.0, issue_service=isvc,
+            issue_pool=orders, issue_fraction=0.5,
+        )
+    finally:
+        _drained(vsvc, "mixed verify")
+        _drained(isvc, "mixed issue")
+    iss = report["issue"]
+    bad = {
+        "verdict_mismatches": report["verdict_mismatches"], "mint_mismatches": iss["mint_mismatches"],
+        "dropped": report["dropped_futures"] + iss["dropped_futures"],
+        "terminal_errors": report["errors_terminal"] + iss["errors"],
+    }
+    if any(bad.values()) or not report["completed"] or not iss["minted"]:
+        raise AssertionError("mixed load: %s" % bad)
+    pick = lambda r: {k: r[k] for k in ("submitted", "goodput_per_s", "latency_s",
+                                         "mean_batch_occupancy", "rejected", "shed")}
+    out["mixed"] = {
+        "seconds": report["duration_s"], "offered_per_s": bare_rate / 2, **bad,
+        "verify": dict(pick(report), completed=report["completed"]),
+        "issue": dict(pick(iss), minted=iss["minted"], fanouts=iss["fanouts"],
+                      hedges=iss["hedges"], partials_discarded=iss["partials_discarded"]),
+    }
+
+    launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    if launches == 0 or plain:
+        raise AssertionError("issue_service phase: %d launches, %d plain calls" % (launches, plain))
+    log("issue_service", batch=BATCH, attrs=entry.MSG_COUNT, hidden=entry.ISSUANCE_HIDDEN,
+        threshold="%d-of-%d" % (t, entry.ISSUANCE_SIGNERS), window=be.window, **out,
+        launches=launches, plain_calls=plain, seconds=time.perf_counter() - started, card=card)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
@@ -1207,10 +1510,11 @@ def main():
     by_path["prove"], _ = prove_phase(card, vhonest, srate)
     by_path["show_g2"] = show_g2_phase(card, g2_creds, {"exact": srate, "combined": scrate})
     ragged_phase(card, vhonest)
-    by_path["issue"], _ = issue_phase(card)
+    by_path["issue"], irates = issue_phase(card)
     by_path["issue_g2"] = issue_g2_phase(card)
     by_path["bucketed"] = bucketed_phase(card)
     by_path["serve"] = serve_phase(card, vhonest, vrate)
+    by_path["issue_service"] = issue_service_phase(card, irates["issued_credentials_per_s"])
     log("done", seconds=time.perf_counter() - started, card=card)
     kern["launches"] = sum(by_path.values())
     kern["launches_by_path"] = by_path

@@ -17,15 +17,21 @@ layout and names and imports nothing from it:
   ps.py, pok_sig.py, pok_vc.py, signature.py, sss.py, batchverify.py,
   errors.py
            the protocol layer: the spec verifiers, the show prover (spec
-           and batched), Fiat-Shamir, the batch checks and ladders, their
-           combiners, and the errors they raise
+           and batched), the issuance protocol and its request proof,
+           Fiat-Shamir, the batch checks and ladders, their combiners, and
+           the errors they raise
   backend.py
            the host spec backend (the services' fallback and bisection
            oracle) and the backend registry ("torch", "spec")
-  serve/, engine/, stream.py, retry.py, faults.py, metrics.py, obs/,
-  state/   the host layers: the online verify service CredentialService
-           on its execution engine, the checkpointed verify_stream, the
-           retry / fault / dead-letter supervision, metrics and tracing
+  serve/, engine/, issue/, stream.py, retry.py, faults.py, metrics.py,
+  obs/, state/
+           the host layers: the online verify service CredentialService
+           on its execution engine, the threshold-issuance service
+           IssuanceService (quorum fan-out over signing authorities,
+           hedging, verify-before-release), load generation with the mixed
+           verify + issue workload (serve/loadgen.py), the checkpointed
+           verify_stream, the retry / fault / dead-letter supervision,
+           metrics and tracing
 
 Entry points run on `cuda` unless the caller passes device="cpu".
 """

@@ -1,8 +1,9 @@
 """Entry points of the port's paths: a fixture of PS credentials and the
 three kinds of forged lane (verify, BASELINE config 2), a fixture of shown
 credentials and the four kinds of forged show (show-verify, config 3), the
-keys and messages of a threshold issuance (config 4), and the fused verify
-program with example operands.
+keys and messages of a threshold issuance (config 4; one user key pair, or
+one a user for the issuance service), and the fused verify program with
+example operands.
 
 `fixture` draws from the same seeded sequence as the JAX package's
 `__graft_entry__._fixture`, so one seed gives the same credentials in
@@ -170,15 +171,21 @@ def seeded_draws(seed):
         secrets.randbelow = saved
 
 
-def issue_fixture(batch, ctx="G1", seed=0x1550E):
+def issue_fixture(batch, ctx="G1", seed=0x1550E, user_keys=False):
     """(params, signers, elgamal_sk, elgamal_pk, messages_list) of a
     threshold issuance: label-derived params (Params.new, 6 attributes),
     ISSUANCE_THRESHOLD-of-ISSUANCE_SIGNERS trusted-dealer keys and one user
-    ElGamal key pair drawn from `seed`, and `batch` message vectors."""
+    ElGamal key pair drawn from `seed`, and `batch` message vectors. With
+    `user_keys`, elgamal_sk and elgamal_pk are lists of `batch` key pairs,
+    one a user (the issuance service's orders), drawn after the shared
+    pair, which the default keeps alone."""
     params = Params.new(MSG_COUNT, b"coconut-issue", GroupContext(ctx))
     with seeded_draws(seed):
         _, _, signers = trusted_party_SSS_keygen(ISSUANCE_THRESHOLD, ISSUANCE_SIGNERS, params)
         esk, epk = elgamal_keygen(params.ctx.sig, params.g)
+        if user_keys:
+            pairs = [elgamal_keygen(params.ctx.sig, params.g) for _ in range(batch)]
+            esk, epk = [sk for sk, _ in pairs], [pk for _, pk in pairs]
     rng = random.Random(seed)
     msgs = [[rng.randrange(R) for _ in range(MSG_COUNT)] for _ in range(batch)]
     return params, signers, esk, epk, msgs

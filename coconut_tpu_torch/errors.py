@@ -1,8 +1,9 @@
 """The port's error classes: its own copies of the JAX package's
 `CoconutError`, `UnsupportedNoOfMessages`, `UnequalNoOfBasesExponents`,
-`PSError`, `GeneralError`, the host layers' `TransientBackendError`, the
-services' retriable refusals (`ServiceRetryableError` and its
-`ServiceOverloadedError`, `ServiceBrownoutError`, `ServiceClosedError`)
+`PSError`, `DeserializationError`, `GeneralError`, the host layers'
+`TransientBackendError`, the services' retriable refusals
+(`ServiceRetryableError` and its `ServiceOverloadedError`,
+`ServiceBrownoutError`, `QuorumUnreachableError`, `ServiceClosedError`)
 and the stream checkpoint's `CheckpointCorruptError` /
 `CheckpointMismatchError` (`coconut_tpu/errors.py`), with the same names,
 messages, stable wire codes and `retry_after_s` contract, so a caller that
@@ -65,6 +66,14 @@ class PSError(CoconutError):
     unknown verify mode, revealed messages that do not match a proof."""
 
     code = "ps_error"
+
+
+class DeserializationError(CoconutError):
+    """Malformed or non-canonical byte encoding: a truncated proof, trailing
+    bytes, a field element not below its modulus, a point off the curve or
+    outside the r-torsion subgroup."""
+
+    code = "bad_request"
 
 
 class GeneralError(CoconutError):
@@ -149,6 +158,30 @@ class ServiceBrownoutError(ServiceRetryableError):
         self.lane = lane
         self.depth = depth
         self.capacity_fraction = capacity_fraction
+
+
+class QuorumUnreachableError(ServiceRetryableError):
+    """The threshold-issuance layer cannot assemble t distinct valid
+    partial signatures for a request: too many authorities are crashed,
+    hung, quarantined or emitting corrupt partials (issue/). Retriable:
+    authorities re-admit through the probation ladder. Carries `needed`
+    (the threshold t), `have` (distinct valid partials collected) and
+    `live` (authorities that could still contribute when the service gave
+    up). Counted under "issue_quorum_unreachable"."""
+
+    code = "quorum_unreachable"
+
+    def __init__(self, needed, have, live=0, program=None, retry_after_s=None):
+        super().__init__(
+            "issuance quorum unreachable: have %d of %d required partial "
+            "signatures with only %d live authorities left able to "
+            "contribute — retry once the pool recovers" % (have, needed, live),
+            program=program,
+            retry_after_s=retry_after_s,
+        )
+        self.needed = needed
+        self.have = have
+        self.live = live
 
 
 class ServiceClosedError(ServiceRetryableError):

@@ -1,5 +1,5 @@
 """Deterministic fault injection and the dead-letter sink — the port's
-copy of the verify half of `coconut_tpu/faults.py`.
+copy of the verify and sign halves of `coconut_tpu/faults.py`.
 
   - `FaultyBackend` wraps any verify-capable backend and injects scheduled
     faults at exactly the seams `stream.verify_stream` and the serve
@@ -9,7 +9,9 @@ copy of the verify half of `coconut_tpu/faults.py`.
     per-batch containment) and hung dispatches (blocking on
     `hang_release`; `hang_entered` is the test's sync point, `hang_max_s`
     bounds an un-released hang). Schedules address dispatches by one
-    0-based global index, so every fault is reproducible.
+    0-based global index, so every fault is reproducible. Its sign seam
+    (`batch_blind_sign`, the issuance authorities' dispatch) has
+    schedules and a counter of its own.
 
   - `DeadLetterLog` is the append-only JSONL file that receives culprit
     credentials isolated by grouped-failure bisection: one object per
@@ -107,6 +109,26 @@ class FaultyBackend:
     dispatch) — the probe/bench chaos phases schedule faults relative to
     the live dispatch counter this way.
 
+    SIGN-PATH seams (threshold issuance, issue/): an authority dispatches
+    `batch_blind_sign` through its backend object when it has one, and
+    this wrapper always does. Sign dispatches tick their own 0-based
+    counter (`sign_dispatches`), apart from the verify counter:
+
+      fail_sign_on    — sign dispatch indices that raise `error` before
+                        the inner signer runs (a transient authority
+                        fault: the quorum layer re-covers around it);
+      crash_sign_on   — sign dispatch indices that raise `InjectedCrash`
+                        (crashes the authority loop: quarantine and
+                        re-coverage from spares);
+      hang_sign_on    — sign dispatch indices that block on the shared
+                        `hang_release` event (a wedged authority: only
+                        the issue watchdog frees its fan-out);
+      corrupt_partial_on — sign dispatch indices whose first partial
+                        comes back with c_tilde_2 displaced by its own h:
+                        a valid point that no longer interpolates, which
+                        only the verify-before-release gate catches
+                        (`corrupted_partials` counts them).
+
     `error` is the exception class raised (default TransientBackendError;
     pass e.g. RuntimeError to model a permanent fault)."""
 
@@ -125,6 +147,10 @@ class FaultyBackend:
         hang_on=(),
         hang_release=None,
         hang_max_s=30.0,
+        fail_sign_on=(),
+        crash_sign_on=(),
+        hang_sign_on=(),
+        corrupt_partial_on=(),
         sleep=time.sleep,
         error=TransientBackendError,
     ):
@@ -144,15 +170,26 @@ class FaultyBackend:
         )
         self.hang_entered = threading.Event()
         self.hang_max_s = hang_max_s
+        self.fail_sign_on = frozenset(fail_sign_on)
+        self.crash_sign_on = frozenset(crash_sign_on)
+        self.hang_sign_on = frozenset(hang_sign_on)
+        self.corrupt_partial_on = frozenset(corrupt_partial_on)
         self.hangs = 0
         self.crashes = 0
+        self.corrupted_partials = 0
         self.sleep = sleep
         self.error = error
         self.dispatches = 0
+        self.sign_dispatches = 0
 
     def _tick(self):
         idx = self.dispatches
         self.dispatches += 1
+        return idx
+
+    def _sign_tick(self):
+        idx = self.sign_dispatches
+        self.sign_dispatches += 1
         return idx
 
     def _dispatch_faulted(self, idx):
@@ -200,6 +237,41 @@ class FaultyBackend:
                 return ([not b for b in bits], not ok)
             return not result
         return result
+
+    def batch_blind_sign(self, sig_requests, sigkey, params):
+        """The authority-side sign seam: ticks the sign counter, applies
+        the sign schedules, and delegates to the inner backend's own
+        `batch_blind_sign` when it has one, else to
+        `signature.batch_blind_sign` with the inner backend's MSMs."""
+        idx = self._sign_tick()
+        if idx in self.crash_sign_on:
+            self.crashes += 1
+            raise InjectedCrash("injected authority crash on sign dispatch #%d" % idx)
+        if idx in self.fail_sign_on:
+            raise self.error("injected sign-dispatch fault #%d" % idx)
+        if idx in self.hang_sign_on:
+            self.hangs += 1
+            self.hang_entered.set()
+            self.hang_release.wait(self.hang_max_s)
+        inner_sign = getattr(self.inner, "batch_blind_sign", None)
+        if inner_sign is not None:
+            out = inner_sign(sig_requests, sigkey, params)
+        else:
+            from .signature import batch_blind_sign as _bbs
+
+            out = _bbs(sig_requests, sigkey, params, backend=self.inner)
+        if idx in self.corrupt_partial_on and out:
+            # displace the first partial's c_tilde_2 by its own h: still a
+            # point of the group, but the share no longer interpolates
+            from .signature import BlindSignature
+
+            bs = out[0]
+            ops = params.ctx.sig
+            out = [
+                BlindSignature(bs.h, (bs.blinded[0], ops.add(bs.blinded[1], bs.h)))
+            ] + list(out[1:])
+            self.corrupted_partials += 1
+        return out
 
     def __getattr__(self, name):
         attr = getattr(self.inner, name)

@@ -81,6 +81,13 @@ def counters_with_prefix(prefix):
         return {k: v for k, v in _counts.items() if k.startswith(prefix)}
 
 
+def timers_with_prefix(prefix):
+    """{name: seconds} for every timer whose name starts with `prefix`
+    (the per-device busy-time family)."""
+    with _lock:
+        return {k: v for k, v in _timers.items() if k.startswith(prefix)}
+
+
 def set_gauge(name, value):
     """Set the point-in-time gauge `name` (e.g. "serve_queue_depth", a
     device executor's current load): last-write-wins, reported verbatim
@@ -162,6 +169,17 @@ def _hist_readout(h):
     }
 
 
+def hist_totals(name):
+    """(count, total_seconds) of histogram `name` over the FULL run —
+    exact, not window-bounded. (0, 0.0) if nothing was observed. Loadgen
+    reads deltas of these (the engine-side term of rpc_overhead_s)."""
+    with _lock:
+        h = _hists.get(name)
+        if h is None:
+            return 0, 0.0
+        return h["count"], h["total"]
+
+
 def register_provider(name, fn):
     """Register a zero-arg callable whose result snapshot() embeds under
     `name` — how obs.trace contributes the per-stage span breakdown
@@ -208,3 +226,13 @@ def reset():
         _counts.clear()
         _hists.clear()
         _gauges.clear()
+
+
+def rate(counter, timer_name):
+    """counter / timer seconds, or None if either is missing/zero."""
+    with _lock:
+        t = _timers.get(timer_name)
+        c = _counts.get(counter)
+    if not t or not c:
+        return None
+    return c / t

@@ -3,8 +3,8 @@ spec curve ops (`coconut_tpu/ops/curve.py`): point add, subtract, double,
 negation, scalar multiplication and MSM for G1 (over Fp) and G2 (over
 Fp2), the standard generators and the cofactors. They
 build the comb-table host multiples, negate sigma_2 before upload, make
-the fixture credentials, and are the host spec of the issuance protocol
-and of the hash to the curves.
+the fixture credentials, check decoded points, and are the host spec of
+the issuance protocol and of the hash to the curves.
 
 Points are affine tuples `(x, y)` with `None` as the point at infinity;
 internally the ops use Jacobian coordinates (X, Y, Z), Z == 0 for infinity.
@@ -190,6 +190,16 @@ class CurveOps:
                 if d:
                     acc = self.jadd(acc, tbl[d])
         return self.to_affine(acc)
+
+    def is_on_curve(self, p):
+        if p is None:
+            return True
+        x, y = p
+        return self.f_sq(y) == self.f_add(self.f_mul(self.f_sq(x), x), self.b)
+
+    def in_subgroup(self, p):
+        """On the curve and of order dividing r (the decoders' check)."""
+        return self.is_on_curve(p) and self.mul(p, R) is None
 
 
 g1 = CurveOps(

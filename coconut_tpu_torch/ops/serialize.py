@@ -9,10 +9,15 @@ layouts of a verkey, a signature and a shown credential
     identity (None) is all zero bytes.
 
 Objects are read by their fields (duck typing), so the port's holders and
-the JAX package's own objects give the same bytes. Encoders only: decoding
-is not part of the port yet.
+the JAX package's own objects give the same bytes. The decoders the request
+proof's `from_bytes` needs (Fr, Fp, Fp2 and uncompressed G1 / G2 points)
+validate as the reference's do: field elements below their modulus, points
+on the curve and in the r-torsion subgroup; every refusal raises
+`DeserializationError`. The compressed encodings wait for `net/`.
 """
 
+from ..errors import DeserializationError
+from .curve import g1, g2
 from .fields import P, R
 
 
@@ -20,12 +25,36 @@ def fr_to_bytes(a):
     return int(a % R).to_bytes(32, "big")
 
 
+def fr_from_bytes(b):
+    if len(b) != 32:
+        raise DeserializationError("Fr must be 32 bytes, got %d" % len(b))
+    v = int.from_bytes(b, "big")
+    if v >= R:
+        raise DeserializationError("non-canonical Fr encoding")
+    return v
+
+
 def fp_to_bytes(a):
     return int(a % P).to_bytes(48, "big")
 
 
+def fp_from_bytes(b):
+    if len(b) != 48:
+        raise DeserializationError("Fp must be 48 bytes, got %d" % len(b))
+    v = int.from_bytes(b, "big")
+    if v >= P:
+        raise DeserializationError("non-canonical Fp encoding")
+    return v
+
+
 def fp2_to_bytes(c):
     return fp_to_bytes(c[0]) + fp_to_bytes(c[1])
+
+
+def fp2_from_bytes(b):
+    if len(b) != 96:
+        raise DeserializationError("Fp2 must be 96 bytes, got %d" % len(b))
+    return (fp_from_bytes(b[:48]), fp_from_bytes(b[48:]))
 
 
 def g1_to_bytes(p):
@@ -34,10 +63,32 @@ def g1_to_bytes(p):
     return fp_to_bytes(p[0]) + fp_to_bytes(p[1])
 
 
+def g1_from_bytes(b):
+    if len(b) != 96:
+        raise DeserializationError("G1 must be 96 bytes, got %d" % len(b))
+    if b == b"\x00" * 96:
+        return None
+    p = (fp_from_bytes(b[:48]), fp_from_bytes(b[48:]))
+    if not g1.in_subgroup(p):
+        raise DeserializationError("G1 point not in the r-torsion subgroup")
+    return p
+
+
 def g2_to_bytes(p):
     if p is None:
         return b"\x00" * 192
     return fp2_to_bytes(p[0]) + fp2_to_bytes(p[1])
+
+
+def g2_from_bytes(b):
+    if len(b) != 192:
+        raise DeserializationError("G2 must be 192 bytes, got %d" % len(b))
+    if b == b"\x00" * 192:
+        return None
+    p = (fp2_from_bytes(b[:96]), fp2_from_bytes(b[96:]))
+    if not g2.in_subgroup(p):
+        raise DeserializationError("G2 point not in the r-torsion subgroup")
+    return p
 
 
 def _encoders(ctx):

@@ -8,8 +8,9 @@ TorchBackend reads these by duck typing (sig.sigma_1, sig.sigma_2,
 vk.X_tilde, vk.Y_tilde, params.g, params.g_tilde, params.ctx.name, and a
 proof's sigma_prime_1, sigma_prime_2, J, proof_vc.t, proof_vc.responses,
 revealed_msg_indices), so any objects with those attributes work, the JAX
-package's own included. Decoding (`*_from_bytes`) is not part of the port
-yet.
+package's own included. A context decodes single points
+(`sig_from_bytes` / `other_from_bytes`, for the request proof); the
+holders' own `from_bytes` wait for `net/`.
 """
 
 from .ops import pairing as _pairing
@@ -30,11 +31,15 @@ class GroupContext:
             self.sig_gen, self.other_gen = G1_GEN, G2_GEN
             self.hash_to_sig, self.hash_to_other = hash_to_g1, hash_to_g2
             self.sig_to_bytes, self.other_to_bytes = ser.g1_to_bytes, ser.g2_to_bytes
+            self.sig_from_bytes, self.other_from_bytes = ser.g1_from_bytes, ser.g2_from_bytes
+            self.sig_nbytes, self.other_nbytes = 96, 192
         elif name == "G2":
             self.sig, self.other = g2, g1
             self.sig_gen, self.other_gen = G2_GEN, G1_GEN
             self.hash_to_sig, self.hash_to_other = hash_to_g2, hash_to_g1
             self.sig_to_bytes, self.other_to_bytes = ser.g2_to_bytes, ser.g1_to_bytes
+            self.sig_from_bytes, self.other_from_bytes = ser.g2_from_bytes, ser.g1_from_bytes
+            self.sig_nbytes, self.other_nbytes = 192, 96
         else:
             raise ValueError("unknown signature group %r" % (name,))
         self.name = name

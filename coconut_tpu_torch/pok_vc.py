@@ -1,6 +1,5 @@
 """Schnorr proof of knowledge of committed values, generic over the group —
-the port's copy of `coconut_tpu/pok_vc.py` (decoding, `Proof.read_from`,
-is not part of the port yet):
+the port's copy of `coconut_tpu/pok_vc.py`:
 
   commit phase   : the prover picks blindings b_i (or takes supplied ones)
                    and publishes t = prod base_i ^ b_i;
@@ -8,9 +7,11 @@ is not part of the port yet):
   verification   : t == prod base_i ^ response_i * commitment ^ c.
 
 `ops` is a host CurveOps (`ops/curve.py`) and `to_bytes` its point encoder
-(`ops/serialize.py`)."""
+(`ops/serialize.py`); `Proof.read_from` decodes one proof of a wire struct
+(the request proof's `from_bytes`)."""
 
-from .errors import UnequalNoOfBasesExponents
+from .errors import DeserializationError, UnequalNoOfBasesExponents
+from .ops.serialize import fr_from_bytes
 from .ops.fields import R
 from .sss import rand_fr
 
@@ -81,3 +82,20 @@ class Proof:
         out = [elem_to_bytes(self.t), len(self.responses).to_bytes(4, "big")]
         out.extend(r.to_bytes(32, "big") for r in self.responses)
         return b"".join(out)
+
+    @classmethod
+    def read_from(cls, b, offset, elem_from_bytes, elem_size):
+        """Parse one Proof at `offset`; returns (proof, next_offset)."""
+        if len(b) < offset + elem_size + 4:
+            raise DeserializationError("truncated PoK proof encoding")
+        t = elem_from_bytes(b[offset : offset + elem_size])
+        offset += elem_size
+        n = int.from_bytes(b[offset : offset + 4], "big")
+        offset += 4
+        if len(b) < offset + 32 * n:
+            raise DeserializationError("truncated PoK proof responses")
+        responses = [
+            fr_from_bytes(b[offset + 32 * i : offset + 32 * (i + 1)])
+            for i in range(n)
+        ]
+        return cls(t, responses), offset + 32 * n

@@ -16,6 +16,9 @@ verification — module for module after `coconut_tpu/serve/`:
               hung-dispatch Watchdog (k x EMA deadline budgets) and the
               BrownoutPolicy (bulk lane sheds first, typed retriable
               ServiceBrownoutError)
+  loadgen.py  closed- and open-loop (Poisson) load generation with the
+              p50/p95/p99 latency, goodput, occupancy and rejection/shed
+              report, and the mixed verify + issue workload
 
 `CredentialService(None, vk, params)` serves on a TorchBackend on `cuda`.
 """
@@ -30,6 +33,7 @@ from .health import (
     HealthPolicy,
     Watchdog,
 )
+from .loadgen import run_loadgen, run_session_loadgen
 from .queue import DEFAULT_MAX_WAIT_MS, LANES, RequestQueue, ServeFuture
 
 
@@ -48,6 +52,8 @@ __all__ = [
     "CredentialService",
     "RequestQueue",
     "ServeFuture",
+    "run_loadgen",
+    "run_session_loadgen",
     "LANES",
     "DEFAULT_MAX_WAIT_MS",
     "HealthPolicy",

@@ -4,23 +4,32 @@ copy of the parts of `coconut_tpu/signature.py` that threshold issuance
 
   holders         Sigkey, Verkey (with the Lagrange-weighted
                   `Verkey.aggregate`), Signature (with
-                  `Signature.aggregate`), SignatureRequest (prepare: the
-                  commitment, the ElGamal ciphertexts of h^{m_i} and the
-                  known messages; `get_h` / `compute_h` hash the request to
-                  its generator h) and BlindSignature (blind-sign and
-                  `unblind`), all on the host spec;
+                  `Signature.aggregate` and the spec `verify`),
+                  SignatureRequest (prepare: the commitment, the ElGamal
+                  ciphertexts of h^{m_i} and the known messages; `get_h` /
+                  `compute_h` hash the request to its generator h) and
+                  BlindSignature (blind-sign and `unblind`), all on the
+                  host spec;
+  request proof   SignatureRequestPoK / SignatureRequestProof: the Schnorr
+                  proof of knowledge a user attaches to a request (the
+                  ElGamal secret, the commitment's opening, each
+                  ciphertext, with shared blindings), its Fiat-Shamir
+                  transcript bound to the statement (`_statement_bytes`),
+                  `verify`, and the wire encoding. Computed on the host
+                  spec, request by request, as the reference does;
   batch functions batch_prepare_blind_sign, batch_blind_sign,
                   batch_unblind and batch_aggregate: the same outputs for a
                   batch, every group operation through a batched backend
                   (TorchBackend's MSM programs, its device hash-to-G1 and
-                  its plus-offset program).
+                  its plus-offset program). Prepare takes one ElGamal
+                  public key or one a request, unblind one secret or one a
+                  blind signature.
 
 `backend=None` in a batch function is a TorchBackend on `cuda` (it raises
 without a card); `backend=ps.SPEC` runs the sequential host spec
-(`backend.SpecBackend`). The request's proof of knowledge is not part of
-the port; the batch functions leave it to their callers, as the
-reference's do. Draws come from `rand_fr` in the reference's order, so
-one seeded sequence gives byte-equal requests in both packages.
+(`backend.SpecBackend`). Draws come from `rand_fr` in the reference's order,
+so one seeded sequence gives byte-equal requests and proofs in both
+packages.
 """
 
 from .backend import (
@@ -28,10 +37,14 @@ from .backend import (
     async_shared_many_api,
 )
 from .elgamal import elgamal_encrypt
-from .errors import GeneralError, UnsupportedNoOfMessages
+from .errors import (
+    DeserializationError, GeneralError, UnequalNoOfBasesExponents,
+    UnsupportedNoOfMessages,
+)
 from .ops import serialize as ser
 from .ops.fields import R
 from .ops.hashing import hash_to_fr
+from .pok_vc import Proof, ProverCommitting
 from .sss import lagrange_basis_at_0, rand_fr
 
 
@@ -161,6 +174,13 @@ class Signature:
         exps = [lagrange_basis_at_0(ids, i) for i, _ in use]
         return Signature(sigma_1, ctx.sig.msm(bases, exps))
 
+    def verify(self, messages, vk, params):
+        """Verify a per-signer or aggregated credential on the host spec
+        (`ps.ps_verify`)."""
+        from .ps import ps_verify  # ps imports this module
+
+        return ps_verify(self, messages, vk, params)
+
     def to_bytes(self, ctx):
         return ser.signature_to_bytes(self, ctx)
 
@@ -243,6 +263,176 @@ class SignatureRequest:
         return b"".join(out)
 
 
+def _statement_bytes(sig_req, elgamal_pk, ctx):
+    """The statement the request proof's Fiat-Shamir transcript binds: the
+    full request (commitment, known messages, ciphertexts) and the ElGamal
+    public key."""
+    return sig_req.to_bytes(ctx) + ctx.sig_to_bytes(elgamal_pk)
+
+
+class SignatureRequestPoK:
+    """Commitment phase of the request proof: one Schnorr sub-proof for the
+    ElGamal secret, one for the commitment's opening and two a ciphertext,
+    each hidden message's blinding shared between the commitment and its
+    ciphertext."""
+
+    def __init__(self, pok_vc_elgamal_sk, pok_vc_commitment, pok_vc_ciphertext, statement):
+        self.pok_vc_elgamal_sk = pok_vc_elgamal_sk
+        self.pok_vc_commitment = pok_vc_commitment
+        self.pok_vc_ciphertext = list(pok_vc_ciphertext)
+        self.statement = statement
+
+    @classmethod
+    def init(cls, sig_req, elgamal_pk, params):
+        """Draw the blindings (the ElGamal secret's, one a hidden message,
+        the commitment randomness', then each ciphertext's k twice) and
+        commit, on the host spec."""
+        ctx = params.ctx
+        ops = ctx.sig
+        statement = _statement_bytes(sig_req, elgamal_pk, ctx)
+        if len(sig_req.known_messages) + len(sig_req.ciphertexts) != len(params.h):
+            raise UnsupportedNoOfMessages(
+                len(params.h), len(sig_req.known_messages) + len(sig_req.ciphertexts)
+            )
+        committing_sk = ProverCommitting(ops, ctx.sig_to_bytes)
+        committing_sk.commit(params.g, None)
+        committed_sk = committing_sk.finish()
+        committing_comm = ProverCommitting(ops, ctx.sig_to_bytes)
+        hidden_msg_blindings = []
+        for h_i in params.h[: len(sig_req.ciphertexts)]:
+            b = rand_fr()
+            committing_comm.commit(h_i, b)
+            hidden_msg_blindings.append(b)
+        committing_comm.commit(params.g, None)
+        committed_comm = committing_comm.finish()
+        ciphertext_commts = []
+        if sig_req.ciphertexts:
+            h = sig_req.get_h(ctx)
+            for i in range(len(sig_req.ciphertexts)):
+                committing_1 = ProverCommitting(ops, ctx.sig_to_bytes)
+                committing_1.commit(params.g, None)
+                committing_2 = ProverCommitting(ops, ctx.sig_to_bytes)
+                committing_2.commit(elgamal_pk, None)
+                committing_2.commit(h, hidden_msg_blindings[i])
+                ciphertext_commts.append((committing_1.finish(), committing_2.finish()))
+        return cls(committed_sk, committed_comm, ciphertext_commts, statement)
+
+    def to_bytes(self):
+        """Fiat-Shamir transcript bytes: the statement, then each
+        sub-proof's bases and commitment."""
+        out = [self.statement, self.pok_vc_elgamal_sk.to_bytes(), self.pok_vc_commitment.to_bytes()]
+        for p1, p2 in self.pok_vc_ciphertext:
+            out.append(p1.to_bytes())
+            out.append(p2.to_bytes())
+        return b"".join(out)
+
+    def gen_proof(self, hidden_messages, randomness, elgamal_sk, challenge):
+        """Response phase. `randomness` is what SignatureRequest.new (or
+        batch_prepare_blind_sign) returned: [r, k_1..k_hidden]."""
+        if len(self.pok_vc_ciphertext) != len(hidden_messages):
+            raise UnequalNoOfBasesExponents(len(self.pok_vc_ciphertext), len(hidden_messages))
+        if len(randomness) != len(self.pok_vc_ciphertext) + 1:
+            raise UnequalNoOfBasesExponents(len(self.pok_vc_ciphertext) + 1, len(randomness))
+        proof_elgamal_sk = self.pok_vc_elgamal_sk.gen_proof(challenge, [elgamal_sk])
+        proof_commitment = self.pok_vc_commitment.gen_proof(
+            challenge, list(hidden_messages) + [randomness[0]]
+        )
+        proof_ciphertexts = []
+        for i, (p1, p2) in enumerate(self.pok_vc_ciphertext):
+            proof_1 = p1.gen_proof(challenge, [randomness[i + 1]])
+            proof_2 = p2.gen_proof(challenge, [randomness[i + 1], hidden_messages[i]])
+            proof_ciphertexts.append((proof_1, proof_2))
+        return SignatureRequestProof(proof_elgamal_sk, proof_commitment, proof_ciphertexts)
+
+
+class SignatureRequestProof:
+    """Response phase of the request proof: what a signer checks before
+    blind-signing a request."""
+
+    def __init__(self, proof_elgamal_sk, proof_commitment, proof_ciphertexts):
+        self.proof_elgamal_sk = proof_elgamal_sk
+        self.proof_commitment = proof_commitment
+        self.proof_ciphertexts = list(proof_ciphertexts)
+
+    def verify(self, sig_req, elgamal_pk, challenge, params):
+        """Each Schnorr relation, and each hidden message's response equal
+        in the commitment's and its ciphertext's sub-proofs. The input is
+        the user's: every malformed shape is a clean False."""
+        ctx = params.ctx
+        ops = ctx.sig
+        if len(self.proof_ciphertexts) != len(sig_req.ciphertexts):
+            return False
+        if len(self.proof_commitment.responses) != len(self.proof_ciphertexts) + 1:
+            return False
+        if len(self.proof_elgamal_sk.responses) != 1:
+            return False
+        if not self.proof_elgamal_sk.verify(ops, [params.g], elgamal_pk, challenge):
+            return False
+        bases = list(params.h[: len(sig_req.ciphertexts)]) + [params.g]
+        if not self.proof_commitment.verify(ops, bases, sig_req.commitment, challenge):
+            return False
+        h = sig_req.get_h(ctx)
+        ct_bases = [elgamal_pk, h]
+        for i, (proof_1, proof_2) in enumerate(self.proof_ciphertexts):
+            if len(proof_1.responses) != 1 or len(proof_2.responses) != 2:
+                return False
+            if proof_2.responses[1] != self.proof_commitment.responses[i]:
+                return False
+            if not proof_1.verify(ops, [params.g], sig_req.ciphertexts[i][0], challenge):
+                return False
+            if not proof_2.verify(ops, ct_bases, sig_req.ciphertexts[i][1], challenge):
+                return False
+        return True
+
+    def to_bytes(self, ctx):
+        """Wire encoding: the secret's and the commitment's proofs, the
+        ciphertext count (4 bytes), then each ciphertext's two proofs."""
+        out = [
+            self.proof_elgamal_sk.to_bytes(ctx.sig_to_bytes),
+            self.proof_commitment.to_bytes(ctx.sig_to_bytes),
+            len(self.proof_ciphertexts).to_bytes(4, "big"),
+        ]
+        for p1, p2 in self.proof_ciphertexts:
+            out.append(p1.to_bytes(ctx.sig_to_bytes))
+            out.append(p2.to_bytes(ctx.sig_to_bytes))
+        return b"".join(out)
+
+    @classmethod
+    def from_bytes(cls, b, ctx):
+        p_sk, o = Proof.read_from(b, 0, ctx.sig_from_bytes, ctx.sig_nbytes)
+        p_comm, o = Proof.read_from(b, o, ctx.sig_from_bytes, ctx.sig_nbytes)
+        if len(b) < o + 4:
+            raise DeserializationError("malformed SignatureRequestProof")
+        n_ct = int.from_bytes(b[o : o + 4], "big")
+        o += 4
+        cts = []
+        for _ in range(n_ct):
+            p1, o = Proof.read_from(b, o, ctx.sig_from_bytes, ctx.sig_nbytes)
+            p2, o = Proof.read_from(b, o, ctx.sig_from_bytes, ctx.sig_nbytes)
+            cts.append((p1, p2))
+        if o != len(b):
+            raise DeserializationError("trailing bytes in SignatureRequestProof")
+        return cls(p_sk, p_comm, cts)
+
+    def to_bytes_for_challenge(self, sig_req, elgamal_pk, params):
+        """The prover's transcript bytes (SignatureRequestPoK.to_bytes),
+        rebuilt from the proof, so a verifier recomputes the challenge."""
+        ctx = params.ctx
+        out = [
+            _statement_bytes(sig_req, elgamal_pk, ctx),
+            self.proof_elgamal_sk.to_bytes_with_bases(ctx.sig_to_bytes, [params.g]),
+            self.proof_commitment.to_bytes_with_bases(
+                ctx.sig_to_bytes, list(params.h[: len(sig_req.ciphertexts)]) + [params.g]
+            ),
+        ]
+        if self.proof_ciphertexts:
+            h = sig_req.get_h(ctx)
+            for p1, p2 in self.proof_ciphertexts:
+                out.append(p1.to_bytes_with_bases(ctx.sig_to_bytes, [params.g]))
+                out.append(p2.to_bytes_with_bases(ctx.sig_to_bytes, [elgamal_pk, h]))
+        return b"".join(out)
+
+
 class BlindSignature:
     """Signer-side BlindSign and user-side Unblind. The signer does not
     re-verify the request's proof of knowledge here: callers check it
@@ -292,9 +482,17 @@ def _blind_exponent(sigkey, hidden_count, known_messages):
 
 def batch_prepare_blind_sign(messages_list, count_hidden, elgamal_pk, params, backend=None):
     """User-side PrepareBlindSign over a batch: the requests
-    `SignatureRequest.new` makes, one a message vector, all under one
-    ElGamal public key, with the group operations batched on `backend`.
-    Returns [(request, randomness [r, k_1..k_hidden])].
+    `SignatureRequest.new` makes, one a message vector, with the group
+    operations batched on `backend`. `elgamal_pk` is one ElGamal public key
+    for the whole batch, or a list of B keys, one a request (a Python list:
+    an affine point is a tuple). Returns [(request, randomness [r,
+    k_1..k_hidden])].
+
+    With a list of keys the commitments and g^k go through the shared comb
+    synchronously, pk^k through the distinct-base MSM ([pk_i] a row,
+    repeated count_hidden times a request), h^m through another distinct
+    MSM, and c2 = pk^k + h^m is a host add: the reference's path for this
+    form.
 
     Draws every r, then every request's k's. On a backend with the
     asynchronous contracts the commitments and the two ElGamal comb MSMs
@@ -308,6 +506,13 @@ def batch_prepare_blind_sign(messages_list, count_hidden, elgamal_pk, params, ba
     B = len(messages_list)
     if B == 0:
         return []
+    pk_list = None
+    if isinstance(elgamal_pk, list):
+        pk_list = list(elgamal_pk)
+        if len(pk_list) != B:
+            raise GeneralError(
+                "elgamal_pk list length %d != batch size %d" % (len(pk_list), B)
+            )
     backend = _batch_backend(backend)
     ctx = params.ctx
     ops = ctx.sig
@@ -339,7 +544,13 @@ def batch_prepare_blind_sign(messages_list, count_hidden, elgamal_pk, params, ba
     many_api = async_shared_many_api(backend, grp)
     distinct_api = async_distinct_api(backend, grp)
     elg_handle = None
-    if many_api is not None:
+    if pk_list is not None:
+        commitments = msm_shared(commit_bases, commit_rows)
+        gk = msm_shared([params.g], flat_k)
+        pkk = msm_distinct(
+            [[pk_list[i]] for i in range(B) for _ in range(count_hidden)], flat_k
+        )
+    elif many_api is not None:
         many_dispatch, many_wait = many_api
         commit_handle = many_dispatch([(commit_bases, commit_rows)])
         elg_handle = many_dispatch([([params.g], flat_k), ([elgamal_pk], flat_k)])
@@ -448,14 +659,25 @@ def blind_sign_rows(sig_requests, sigkey, ctx):
 
 
 def batch_unblind(blind_sigs, elgamal_sk, ctx, backend=None):
-    """User-side Unblind over a batch under one ElGamal secret: sigma_2 =
-    c_tilde_2 - c_tilde_1^sk, the scalar multiplications as one k = 1
-    distinct MSM and the subtractions on the host."""
+    """User-side Unblind over a batch: sigma_2 = c_tilde_2 - c_tilde_1^sk,
+    the scalar multiplications as one k = 1 distinct MSM and the
+    subtractions on the host. `elgamal_sk` is one secret for every blind
+    signature, or a list (or tuple) of one a blind signature: the issuance
+    service unblinds many users' partials in one call (issue/quorum.py)."""
     if not blind_sigs:
         return []
     backend = _batch_backend(backend)
+    if isinstance(elgamal_sk, (list, tuple)):
+        if len(elgamal_sk) != len(blind_sigs):
+            raise GeneralError(
+                "per-signature elgamal_sk list length %d != %d blind "
+                "signatures" % (len(elgamal_sk), len(blind_sigs))
+            )
+        sk_rows = [[sk] for sk in elgamal_sk]
+    else:
+        sk_rows = [[elgamal_sk]] * len(blind_sigs)
     msm = getattr(backend, "msm_%s_distinct" % ("g1" if ctx.name == "G1" else "g2"))
-    a_sks = msm([[bs.blinded[0]] for bs in blind_sigs], [[elgamal_sk]] * len(blind_sigs))
+    a_sks = msm([[bs.blinded[0]] for bs in blind_sigs], sk_rows)
     ops = ctx.sig
     return [
         Signature(bs.h, ops.sub(bs.blinded[1], a_sk)) for bs, a_sk in zip(blind_sigs, a_sks)

@@ -234,11 +234,13 @@ class StreamState:
 
 def _pin_to_device(dispatch, device):
     """Wrap a dispatch callable so its host encode + launch run with
-    `device` as the current CUDA device — the per-device executor pool's
-    placement seam (serve/service.py): tensors a backend on `cuda` creates
-    inside land on that card, and its caches are keyed by the card
-    (gpu/backend.py). device=None, or a device that is not a CUDA one, is
-    the identity (stub backends, single-device services, the CPU)."""
+    `device` as the current CUDA device — the placement seam of the
+    per-device executor pool (serve/service.py) and of the issuance
+    authorities' sign dispatch (issue/authority.py): tensors a backend on
+    `cuda` creates inside land on that card, and its caches are keyed by
+    the card (gpu/backend.py). device=None, or a device that is not a CUDA
+    one, is the identity (stub backends, single-device services, the
+    CPU)."""
     if device is None:
         return dispatch
     import torch
@@ -247,9 +249,9 @@ def _pin_to_device(dispatch, device):
     if device.type != "cuda":
         return dispatch
 
-    def pinned(s, m, vk, params):
+    def pinned(*args):
         with torch.cuda.device(device):
-            return dispatch(s, m, vk, params)
+            return dispatch(*args)
 
     return pinned
 

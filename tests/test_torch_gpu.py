@@ -2,9 +2,9 @@
 PyTorch version on the GPU, the wrapper's checks, and the verify,
 show-verify, combined and grouped paths, the show prover, the show
 family under G2, the device hash-to-G1, the bucketed distinct MSM, a
-threshold issuance round and the online verify service on `cuda` against
-the same paths on the CPU or the host spec, and the kernel's counts under
-threads.
+threshold issuance round, the online verify service and the issuance
+service (a mint at B = 16, a crashed authority) on `cuda` against the same
+paths on the CPU or the host spec, and the kernel's counts under threads.
 
 Marked `gpu`; each test skips where no CUDA card is present. On a machine
 with one: `python -m pytest tests/test_torch_gpu.py -q`. Tolerance: exact
@@ -360,3 +360,65 @@ def test_credential_service_on_cuda_matches_batch_verify(cuda):
         got = [f.result(300.0) for f in futs]
     assert got == expect
     assert cuda_fp.PLAIN_CALLS == plain
+
+
+def _issue_orders(n):
+    """entry.issue_fixture(n) with a key pair a user, and its n requests
+    prepared on the host spec: (fixture, [(request, messages, secret)])."""
+    fix = entry.issue_fixture(n, user_keys=True)
+    params, _, esks, epks, msgs = fix
+    with entry.seeded_draws(0x155):
+        prepared = sig.batch_prepare_blind_sign(msgs, entry.ISSUANCE_HIDDEN, epks, params, ps.SPEC)
+    return fix, [(req, m, sk) for (req, _), m, sk in zip(prepared, msgs, esks)]
+
+
+def test_issuance_service_on_cuda_matches_the_spec(cuda):
+    """IssuanceService(backend=None) mints B = 16 orders (per-user ElGamal
+    keys) on the card in one fan-out: every credential equals the spec's
+    Signature.aggregate of BlindSignature.new partials under the subset
+    {2, 4, 5}, verifies on the card, and no plain call runs."""
+    from coconut_tpu_torch import metrics
+    from coconut_tpu_torch.issue import IssuanceService
+
+    (params, signers, _, _, msgs), orders = _issue_orders(16)
+    metrics.reset()
+    plain = cuda_fp.PLAIN_CALLS
+    svc = IssuanceService(signers, params, entry.ISSUANCE_THRESHOLD, max_batch=16, max_wait_ms=50.0)
+    assert svc.minter.backend.device.type == "cuda"
+    futs = [svc.submit(req, m, sk) for req, m, sk in orders]
+    with svc:
+        creds = [f.result(600.0) for f in futs]
+    assert cuda_fp.PLAIN_CALLS == plain
+    assert metrics.get_count("issue_minted") == 16
+    ctx = params.ctx
+    for (req, m, sk), cred in zip(orders, creds):
+        parts = [(j, sig.BlindSignature.new(req, signers[j - 1].sigkey, params).unblind(sk, ctx))
+                 for j in (2, 4, 5)]
+        assert cred == sig.Signature.aggregate(entry.ISSUANCE_THRESHOLD, parts, ctx)
+    vk = sig.Verkey.aggregate(3, [(j, signers[j - 1].verkey) for j in (2, 4, 5)], ctx)
+    assert svc.minter.backend.batch_verify(creds, msgs, vk, params) == [True] * 16
+
+
+def test_issuance_service_on_cuda_contains_a_crashed_authority(cuda):
+    """B = 16, authority 2 crashing on its first sign: every order mints on
+    the card and verifies, the crash is counted once and authority 2 is
+    QUARANTINED."""
+    from coconut_tpu_torch import metrics
+    from coconut_tpu_torch.faults import FaultyBackend
+    from coconut_tpu_torch.issue import IssuanceService
+    from coconut_tpu_torch.serve.health import HealthPolicy
+
+    (params, signers, _, _, msgs), orders = _issue_orders(16)
+    be = TorchBackend()
+    backends = [be, FaultyBackend(be, crash_sign_on=(0,)), be, be, be]
+    metrics.reset()
+    svc = IssuanceService(signers, params, 3, backend=be, backends=backends, max_batch=16,
+                          max_wait_ms=50.0, health_policy=HealthPolicy(probe_after_s=600.0))
+    futs = [svc.submit(req, m, sk) for req, m, sk in orders]
+    with svc:
+        creds = [f.result(600.0) for f in futs]
+    vk = sig.Verkey.aggregate(3, [(j, signers[j - 1].verkey) for j in (1, 3, 4)], params.ctx)
+    assert be.batch_verify(creds, msgs, vk, params) == [True] * 16
+    assert backends[1].crashes == 1 and metrics.get_count("issue_authority_crashes") == 1
+    assert svc._health_of("2").state == "quarantined"
+    assert metrics.get_count("issue_minted") == 16
