@@ -141,14 +141,48 @@ Phases, one line each (plus the kernel table and the result line):
      (None, max_batch=1024) over phase 17's first 1,024 credentials (one
      in 8 forged): 0 mismatches, 0 drops, 0 terminal errors; both
      sections' p50 / p99 and goodput.
+ 18. keylife_session: config 4 without a trusted dealer (G1, 6
+     attributes, 2 hidden, {2, 3, 4, 5} revealed): entry.keylife_fixture
+     bootstraps epoch 1 by a seeded DKG in which dealer 2 corrupts its
+     share to authority 4 (the complaint must name exactly dealer 2, who
+     is excluded); ProtocolEngine(backend="torch", max_batch=1024,
+     max_wait_ms=50, keychain=the registry) with the manager attached, and
+     1,024 users with a key pair each. 1,024 full sessions (prepare ->
+     mint -> verify -> show_prove -> show_verify, each hop one batch), cold
+     then warm: every verdict True, every credential of epoch 1, 16 lanes
+     True on the host spec (ps_verify, pok_sig.show_verify). A refresh with
+     1,024 mints in flight (verkey bytes unchanged, every share moved, the
+     straddlers of epoch 1 verify), a reshare to 2-of-5 with 1,024 mints
+     in flight (epoch 2, a new verkey, the straddlers verify under their
+     stamp), 1,024 mints under epoch 2, then one batch of 512 epoch-1 and
+     512 epoch-2 credentials verified (two dispatches of 512, counted),
+     proved and show-verified (two epoch groups each); the epoch-1
+     credentials presented as epoch 2 verify False, epoch 42 refuses with
+     EpochUnknownError, two more reshares retire epoch 1 (EpochRetiredError
+     naming live epochs [2, 3, 4]) while epoch 2 still verifies; then
+     run_session_loadgen for 20 s, closed loop, 256 clients over the 1,024
+     identities. Prints the key rounds' walls, every hop's wall, the warm
+     hops' rates beside the bare rates of phases main_path, show_path,
+     prove and issue, sessions/s with p50 / p99 and per-program goodput,
+     the keylife_* counters, pins (0), dangling futures (0), launches and
+     plain calls (0).
+ 19. ct_probe: batch_blind_sign at B = 1024 on phase 18's requests under
+     the five secret-key patterns of probes/probe_ct.py (zeros, ones,
+     dense maximal digits, r - 1, random), after an untimed warm-up, the
+     patterns in turn 7 times: each pattern's median wall and the host
+     encode of its secret scalars (GLV split, signed digits uploaded), the
+     max/min of the medians beside the run-to-run spread (the largest
+     max/min of one pattern's walls); two lanes a pattern equal
+     BlindSignature.new on the host spec.
 
 Each path's first call runs with the kernel's counts set to 0 just before
 it and read just after; the kernel table's `launches` is their sum, and
 `launches_by_path` holds each (g2_verify: the sum of its three paths';
 prove: the prover's and its two FS verifies'; show_g2: the prover's and
 its two verifies'; issue: the round's four stages'; issue_g2: the same;
-bucketed: its three MSMs'; serve and issue_service: every run of the
-phase, counted from its start to its end, with no plain call allowed).
+bucketed: its three MSMs'; serve, issue_service, keylife_session and
+ct_probe: every run of the phase, counted from its start to its end, with
+no plain call allowed).
 
 Any failed check raises (non-zero exit). After the phases, a `done` line
 gives the script's seconds since start; then the kernel table, and last
@@ -186,7 +220,7 @@ from coconut_tpu_torch.faults import DeadLetterLog, FaultyBackend
 from coconut_tpu_torch.issue import IssuanceService
 from coconut_tpu_torch.profile_verify import issue_round, profile
 from coconut_tpu_torch.retry import RetryPolicy
-from coconut_tpu_torch.serve import CredentialService, run_loadgen
+from coconut_tpu_torch.serve import CredentialService, run_loadgen, run_session_loadgen
 from coconut_tpu_torch.serve.health import HealthPolicy, Watchdog
 from coconut_tpu_torch.signature import fiat_shamir_challenge
 from coconut_tpu_torch.stream import verify_stream
@@ -681,7 +715,7 @@ def prove_phase(card, honest, show_rate):
         show_path_show_verifies_per_s=show_rate,
         fs_ratio_to_show_path=fs_rate / show_rate, card=card,
     )
-    return launches, out["fs_batched"]["show_verifies_per_s"]
+    return launches, out["prove"]["proofs_per_s"]
 
 
 def show_g2_phase(card, g2_creds, g1_show_rates):
@@ -1478,6 +1512,393 @@ def issue_service_phase(card, bare_rate):
     return launches
 
 
+HOP_WAIT_MS = 600000.0  # a hop's requests flush as one full batch, never by deadline
+SESSION_SECONDS = 20.0
+SESSION_CONCURRENCY = 256
+SPEC_LANES = 16
+# the pool's hung-dispatch floor: one executor runs every pool program, so
+# its EMA mixes 0.1 s prepare batches with 2 s show-verify ones
+SESSION_WATCHDOG_FLOOR_S = 60.0
+
+
+def _on_card(be, what):
+    if be.device.type != "cuda":
+        raise AssertionError("%s is not a cuda TorchBackend" % what)
+
+
+def _tamper_one(dealer, recipient, dim=0):
+    """run_dkg's fault hook: `dealer` corrupts its share for `recipient`."""
+
+    def tamper(d, r, dm, share):
+        if (d, r, dm) == (dealer, recipient, dim):
+            return (share[0] + 1, share[1])
+        return None
+
+    return tamper
+
+
+class _Hops:
+    """Queues every request of a hop with a deadline it never reaches, so
+    the batcher flushes them as one full batch; keeps every future."""
+
+    def __init__(self):
+        self.futures = []
+        self.walls = {}
+
+    def run(self, what, submits):
+        t0 = time.perf_counter()
+        futs = [submit(HOP_WAIT_MS) for submit in submits]
+        self.futures.extend(futs)
+        out = [f.result(900.0) for f in futs]
+        self.walls.setdefault(what, []).append(time.perf_counter() - t0)
+        return out
+
+
+def _all_true(bits, what, want=True):
+    if any(b is not want for b in bits):
+        raise AssertionError("%s: %d of %d verdicts are not %s"
+                             % (what, sum(b is not want for b in bits), len(bits), want))
+
+
+def _counted_calls(obj, name, calls):
+    """Wrap obj.name so each call appends its first argument to `calls`."""
+    inner = getattr(obj, name)
+
+    def counted(*args, **kw):
+        calls.append(args[0] if args else None)
+        return inner(*args, **kw)
+
+    setattr(obj, name, counted)
+
+
+def _session_round(eng, hops, users, tag):
+    """Every user through prepare -> mint -> verify -> show_prove ->
+    show_verify, each hop one batch of 1,024."""
+    prepared = hops.run(tag + "prepare", [
+        lambda w, m=m, pk=pk: eng.submit_prepare(m, pk, max_wait_ms=w) for m, pk, _ in users
+    ])
+    creds = hops.run(tag + "mint", [
+        lambda w, r=r, m=m, sk=sk: eng.submit_mint(r, m, sk, max_wait_ms=w)
+        for (r, _), (m, _, sk) in zip(prepared, users)
+    ])
+    bits = hops.run(tag + "verify", [
+        lambda w, c=c, m=m: eng.submit_verify(c, m, max_wait_ms=w) for c, (m, _, _) in zip(creds, users)
+    ])
+    proofs = hops.run(tag + "show_prove", [
+        lambda w, c=c, m=m: eng.submit_show_prove(c, m, max_wait_ms=w) for c, (m, _, _) in zip(creds, users)
+    ])
+    shows = hops.run(tag + "show_verify", [
+        lambda w, p=p, c=c: eng.submit_show_verify(p[0], p[2], p[1], epoch=c.epoch, max_wait_ms=w)
+        for p, c in zip(proofs, creds)
+    ])
+    _all_true(bits, tag + "verify")
+    _all_true(shows, tag + "show_verify")
+    return prepared, creds, proofs
+
+
+def _verify_hop(eng, hops, what, creds, msgs):
+    return hops.run(what, [
+        lambda w, c=c, m=m: eng.submit_verify(c, m, max_wait_ms=w) for c, m in zip(creds, msgs)
+    ])
+
+
+def _mint_inflight(eng, hops, prepared, users, round_fn, what):
+    """Queue a full mint hop, run a key round while it is in flight, then
+    settle the mints: (credentials, the round's wall, its keyset)."""
+    futs = [
+        eng.submit_mint(r, m, sk, max_wait_ms=HOP_WAIT_MS)
+        for (r, _), (m, _, sk) in zip(prepared, users)
+    ]
+    hops.futures.extend(futs)
+    t0 = time.perf_counter()
+    ks = round_fn()
+    round_s = time.perf_counter() - t0
+    creds = [f.result(900.0) for f in futs]
+    hops.walls.setdefault(what, []).append(time.perf_counter() - t0)
+    return creds, round_s, ks
+
+
+def keylife_session_phase(card, bare):
+    """Config 4 without a trusted dealer on one ProtocolEngine: DKG with a
+    corrupt dealer named, 1,024 full sessions, a refresh and a reshare
+    with 1,024 mints in flight, a batch over two epochs, wrong, unknown
+    and retired epochs, then a closed-loop session load."""
+    from coconut_tpu_torch.engine import ProtocolEngine
+    from coconut_tpu_torch.errors import EpochRetiredError, EpochUnknownError
+    from coconut_tpu_torch.signature import Signature
+
+    started = time.perf_counter()
+    cuda_fp.LAUNCHES = 0
+    cuda_fp.PLAIN_CALLS = 0
+    metrics.reset()
+    rounds_s = {}
+    t0 = time.perf_counter()
+    params, mgr, ks1 = entry.keylife_fixture(tamper=_tamper_one(2, 4))
+    rounds_s["dkg"] = time.perf_counter() - t0
+    if mgr.last_round.complaints != {2: (4,)} or ks1.excluded != (2,):
+        raise AssertionError("DKG complaints %s, excluded %s"
+                             % (mgr.last_round.complaints, ks1.excluded))
+    t0 = time.perf_counter()
+    _, _, esks, epks, msgs = entry.issue_fixture(BATCH, user_keys=True)
+    users = list(zip(msgs, epks, esks))
+    fixture_s = time.perf_counter() - t0
+    ctx = params.ctx
+    revealed = list(entry.SHOW_REVEALED)
+    eng = ProtocolEngine(
+        ks1.signers, params, entry.ISSUANCE_THRESHOLD, count_hidden=entry.ISSUANCE_HIDDEN,
+        revealed_msg_indices=revealed, vk=ks1.vk, backend="torch", devices=1,
+        max_batch=BATCH, max_wait_ms=SERVE_WAIT_MS, max_depth=2 * BATCH,
+        keychain=mgr.registry, watchdog=Watchdog(min_timeout_s=SESSION_WATCHDOG_FLOOR_S),
+    )
+    be = eng.backend
+    _on_card(be, "backend='torch'")
+    mgr.attach(eng)
+    eng.start()
+    hops = _Hops()
+    groups = {"verify": [], "show_prove": [], "show_verify": []}
+    split = eng._verify._dispatch_by_epoch
+
+    def by_epoch(fn, sigs, messages_list):
+        def counted(s, m, vk):
+            groups["verify"].append(len(s))
+            return fn(s, m, vk)
+
+        return split(counted, sigs, messages_list)
+
+    eng._verify._dispatch_by_epoch = by_epoch
+    _counted_calls(eng._prove, "_vk_for", groups["show_prove"])
+    _counted_calls(eng._showv, "_vk_for", groups["show_verify"])
+    out = {"fixture_s": fixture_s}
+    try:
+        # 1) full sessions, cold then warm
+        prepared, creds1, proofs = _session_round(eng, hops, users, "cold_")
+        prepared, creds1, proofs = _session_round(eng, hops, users, "")
+        if any(c.epoch != 1 for c in creds1):
+            raise AssertionError("a credential left the first round without epoch 1")
+        vk1 = ks1.vk
+        t0 = time.perf_counter()
+        for i in range(0, BATCH, max(1, BATCH // SPEC_LANES)):
+            p, c, rv = proofs[i]
+            if not (ps.ps_verify(creds1[i], msgs[i], vk1, params)
+                    and pok_sig.show_verify(p, vk1, params, rv, c)):
+                raise AssertionError("lane %d fails the host spec" % i)
+        spec_s = time.perf_counter() - t0
+        hop_rates = {k: BATCH / v[-1] for k, v in hops.walls.items() if not k.startswith("cold_")}
+        session_round_s = sum(hops.walls[k][-1] for k in hop_rates)
+
+        # 2) proactive refresh with 1,024 mints in flight: same verkey,
+        # every share moved, the straddlers settle under epoch 1
+        before = [(s.sigkey.x, tuple(s.sigkey.y)) for s in ks1.signers]
+        creds_r, rounds_s["refresh"], ks1r = _mint_inflight(
+            eng, hops, prepared, users, mgr.refresh, "mint_across_refresh")
+        after = [(s.sigkey.x, tuple(s.sigkey.y)) for s in ks1r.signers]
+        if ks1r.vk.to_bytes(ctx) != vk1.to_bytes(ctx) or any(a == b for a, b in zip(before, after)):
+            raise AssertionError("the refresh moved the verkey or kept a share")
+        if any(c.epoch != 1 for c in creds_r):
+            raise AssertionError("a mint straddling the refresh left epoch 1")
+        _all_true(_verify_hop(eng, hops, "verify_refreshed", creds_r, msgs), "refresh straddlers")
+
+        # 3) reshare to 2-of-5 with 1,024 mints in flight: epoch 2, a new
+        # verkey; the straddlers verify under their stamp
+        creds_s, rounds_s["reshare_2_of_5"], ks2 = _mint_inflight(
+            eng, hops, prepared, users,
+            lambda: mgr.reshare(threshold=2, total=entry.ISSUANCE_SIGNERS), "mint_across_reshare")
+        if ks2.epoch != 2 or ks2.vk.to_bytes(ctx) == vk1.to_bytes(ctx):
+            raise AssertionError("the reshare made %r" % (ks2,))
+        straddle = collections.Counter(c.epoch for c in creds_s)
+        if set(straddle) - {1, 2}:
+            raise AssertionError("reshare straddlers carry epochs %s" % dict(straddle))
+        _all_true(_verify_hop(eng, hops, "verify_straddlers", creds_s, msgs), "reshare straddlers")
+
+        # 4) one coalesced batch over two epochs: 512 epoch-1 and 512
+        # epoch-2 credentials, verified and shown
+        creds2 = hops.run("mint_epoch2", [
+            lambda w, r=r, m=m, sk=sk: eng.submit_mint(r, m, sk, max_wait_ms=w)
+            for (r, _), (m, _, sk) in zip(prepared, users)
+        ])
+        if any(c.epoch != 2 for c in creds2):
+            raise AssertionError("a mint after the reshare left epoch 2")
+        half = BATCH // 2
+        mixed = creds1[:half] + creds2[half:]
+        for g in groups.values():
+            g.clear()
+        _all_true(_verify_hop(eng, hops, "verify_two_epochs", mixed, msgs), "two-epoch verify")
+        mproofs = hops.run("show_prove_two_epochs", [
+            lambda w, c=c, m=m: eng.submit_show_prove(c, m, max_wait_ms=w) for c, m in zip(mixed, msgs)
+        ])
+        _all_true(hops.run("show_verify_two_epochs", [
+            lambda w, p=p, c=c: eng.submit_show_verify(p[0], p[2], p[1], epoch=c.epoch, max_wait_ms=w)
+            for p, c in zip(mproofs, mixed)
+        ]), "two-epoch show verify")
+        two_epoch_groups = {k: list(v) for k, v in groups.items()}
+        if two_epoch_groups != {"verify": [half, half], "show_prove": [1, 2],
+                                "show_verify": [1, 2]}:
+            raise AssertionError("the two-epoch batch ran as %s" % two_epoch_groups)
+
+        # 5) wrong, unknown and retired epochs
+        wrong = []
+        for c in creds1:
+            w = Signature(c.sigma_1, c.sigma_2)
+            w.epoch = 2
+            wrong.append(w)
+        _all_true(_verify_hop(eng, hops, "verify_wrong_epoch", wrong, msgs), "wrong epoch", False)
+        unknown = Signature(creds1[0].sigma_1, creds1[0].sigma_2)
+        unknown.epoch = 42
+        try:
+            eng.submit_verify(unknown, msgs[0])
+            raise AssertionError("epoch 42 was admitted")
+        except EpochUnknownError as e:
+            unknown_msg = str(e)
+        for tag in ("reshare_3", "reshare_4"):
+            t0 = time.perf_counter()
+            mgr.reshare()
+            rounds_s[tag] = time.perf_counter() - t0
+        try:
+            eng.submit_verify(creds1[0], msgs[0])
+            raise AssertionError("a retired epoch was admitted")
+        except EpochRetiredError as e:
+            retired_msg = str(e)
+        if "live epochs: [2, 3, 4]" not in retired_msg:
+            raise AssertionError("retired refusal: %s" % retired_msg)
+        _all_true(_verify_hop(eng, hops, "verify_epoch2_after_retire", creds2, msgs),
+                  "epoch 2 after the retirement")
+
+        # 6) closed-loop sessions over the 1,024 identities
+        pool = [(m, pk, sk) for m, pk, sk in users]
+        load = run_session_loadgen(
+            eng, pool, duration_s=SESSION_SECONDS, concurrency=SESSION_CONCURRENCY,
+            rng=random.Random(0x5E55), result_timeout=900.0,
+        )
+    finally:
+        if not eng.drain(timeout=300.0):
+            raise AssertionError("the protocol engine did not drain")
+    dangling = sum(not f.done() for f in hops.futures)
+    pins = {e: mgr.registry.pin_count(e) for e in (1, 2, 3, 4)}
+    if dangling or any(pins.values()):
+        raise AssertionError("dangling futures %d, pins %s" % (dangling, pins))
+    if load["failed_shows"] or load["errors"] or not load["sessions_completed"]:
+        raise AssertionError("session load: %s" % {k: load[k] for k in (
+            "sessions_completed", "failed_shows", "errors", "rejected", "shed")})
+    counters = metrics.snapshot()["counters"]
+    timeouts = {k: counters.get(k, 0) for k in ("serve_watchdog_timeouts", "issue_watchdog_timeouts")}
+    if any(timeouts.values()):
+        raise AssertionError("watchdog timeouts %s" % timeouts)
+    keylife = {k: v for k, v in sorted(counters.items()) if k.startswith("keylife_")}
+    if (keylife.get("keylife_refreshes"), keylife.get("keylife_reshares"),
+            keylife.get("keylife_retirements")) != (1, 3, 1):
+        raise AssertionError("keylife counters %s" % keylife)
+    launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    if launches == 0 or plain:
+        raise AssertionError("keylife_session phase: %d launches, %d plain calls" % (launches, plain))
+    bare_rates = {"prepare": bare["prepare_per_s"], "mint": bare["issued_credentials_per_s"],
+                  "verify": bare["verify_per_s"], "show_prove": bare["proofs_per_s"],
+                  "show_verify": bare["show_verify_per_s"]}
+    log(
+        "keylife_session", batch=BATCH, attrs=entry.MSG_COUNT, hidden=entry.ISSUANCE_HIDDEN,
+        revealed=revealed, threshold="3-of-5, then 2-of-5", window=be.window,
+        dkg_complaints={"2": [4]}, dkg_excluded=list(ks1.excluded),
+        key_rounds_s=rounds_s, hop_walls_s=hops.walls, hop_rates_per_s=hop_rates,
+        bare_rates_per_s=bare_rates,
+        hop_ratio_to_bare={k: hop_rates[k] / bare_rates[k] for k in hop_rates},
+        session_round_s=session_round_s, sessions_per_s_one_round=BATCH / session_round_s,
+        spec_lanes=SPEC_LANES, spec_s=spec_s, reshare_straddlers=dict(straddle),
+        two_epoch_groups=two_epoch_groups, unknown_epoch=unknown_msg, retired_epoch=retired_msg,
+        session_load={k: load[k] for k in (
+            "duration_s", "concurrency", "sessions_started", "sessions_completed", "rejected",
+            "shed", "errors", "failed_shows", "sessions_per_s", "session_latency_s",
+            "per_program")},
+        keylife_counters=keylife, pins=pins, dangling_futures=dangling, watchdog_timeouts=timeouts,
+        engine_counters={k: v for k, v in sorted(counters.items()) if k.endswith(("_jit_shapes", "_done"))
+                         or k in ("issue_minted", "issue_batches", "issue_hedges", "serve_batches")},
+        live_epochs=mgr.registry.live_epochs(), launches=launches, plain_calls=plain,
+        seconds=time.perf_counter() - started, card=card,
+    )
+    return launches, (params, prepared)
+
+
+CT_REPS = 7
+# every signed 5-bit digit at its largest magnitude (probes/probe_ct.py)
+_DENSE = sum(16 * (32**i) for i in range(51)) % R
+CT_PATTERNS = {
+    "zeros": sig.Sigkey(0, [0] * entry.MSG_COUNT),
+    "ones": sig.Sigkey(1, [1] * entry.MSG_COUNT),
+    "dense_max_digits": sig.Sigkey(_DENSE, [_DENSE] * entry.MSG_COUNT),
+    "r_minus_1": sig.Sigkey(R - 1, [R - 1] * entry.MSG_COUNT),
+    "random": sig.Sigkey(
+        0x6A09E667F3BCC908 * 0x243F6A8885A308D3 % R,
+        [(0x9E3779B97F4A7C15 * (i + 1) ** 5) % R for i in range(entry.MSG_COUNT)],
+    ),
+}
+
+
+def ct_probe_phase(card, issued):
+    """batch_blind_sign on one fixed B = 1024 request batch under the five
+    secret patterns of probes/probe_ct.py, after an untimed warm-up: the
+    call's wall and the host encode of its secret scalars (GLV split, then
+    signed digits uploaded to the card) alone, median of 7, the patterns
+    taken in turn each repetition. Prints max/min of the medians beside
+    the run-to-run spread (the largest max/min of one pattern's walls)."""
+    from coconut_tpu_torch.gpu import glv
+    from coconut_tpu_torch.gpu.backend import _signed_digits
+
+    started = time.perf_counter()
+    params, prepared = issued
+    reqs = [r for r, _ in prepared]
+    be = TorchBackend()
+    nwin = -(-glv.HALF_BITS // 5) + 1
+
+    def encode(sk):
+        _, _, scalars = sig.blind_sign_rows(reqs, sk, params.ctx)
+        split = [[h for s in row for h in glv.decompose(s)] for row in scalars]
+        _signed_digits(split, be.device, nwin=nwin)
+        torch.cuda.synchronize()
+
+    def blind_sign(sk):
+        torch.cuda.synchronize()
+        out = sig.batch_blind_sign(reqs, sk, params, be)
+        torch.cuda.synchronize()
+        return out
+
+    cuda_fp.LAUNCHES = 0
+    cuda_fp.PLAIN_CALLS = 0
+    for sk in CT_PATTERNS.values():  # untimed warm-up
+        encode(sk)
+        blind_sign(sk)
+    walls = {k: [] for k in CT_PATTERNS}
+    encodes = {k: [] for k in CT_PATTERNS}
+    for _ in range(CT_REPS):
+        for name, sk in CT_PATTERNS.items():
+            t0 = time.perf_counter()
+            encode(sk)
+            encodes[name].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            blind_sign(sk)
+            walls[name].append(time.perf_counter() - t0)
+    launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    if launches == 0 or plain:
+        raise AssertionError("ct_probe phase: %d launches, %d plain calls" % (launches, plain))
+    # the probe's calls compute real blind signatures: each pattern's
+    # partials match the host spec on two lanes
+    for name, sk in CT_PATTERNS.items():
+        got = blind_sign(sk)
+        for i in (0, BATCH - 1):
+            if got[i].to_bytes(params.ctx) != sig.BlindSignature.new(reqs[i], sk, params).to_bytes(params.ctx):
+                raise AssertionError("ct_probe %s lane %d differs from the host spec" % (name, i))
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    enc = {k: statistics.median(v) for k, v in encodes.items()}
+    ratio = max(med.values()) / min(med.values())
+    spread = max(max(v) / min(v) for v in walls.values())
+    log(
+        "ct_probe", batch=BATCH, reps=CT_REPS, wall_median_s=med, wall_min_s={
+            k: min(v) for k, v in walls.items()}, host_encode_median_s=enc,
+        host_encode_share={k: enc[k] / med[k] for k in med}, walls_s=walls,
+        max_over_min_of_medians=ratio, run_to_run_spread=spread,
+        spread_covers_ratio=spread >= ratio, launches=launches, plain_calls=plain,
+        seconds=time.perf_counter() - started, card=card,
+    )
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
@@ -1507,7 +1928,7 @@ def main():
     by_path["g2_verify"], g2_creds = g2_verify_phase(
         card, {"exact": vrate, "combined": crate, "grouped": grate}
     )
-    by_path["prove"], _ = prove_phase(card, vhonest, srate)
+    by_path["prove"], prate = prove_phase(card, vhonest, srate)
     by_path["show_g2"] = show_g2_phase(card, g2_creds, {"exact": srate, "combined": scrate})
     ragged_phase(card, vhonest)
     by_path["issue"], irates = issue_phase(card)
@@ -1515,6 +1936,9 @@ def main():
     by_path["bucketed"] = bucketed_phase(card)
     by_path["serve"] = serve_phase(card, vhonest, vrate)
     by_path["issue_service"] = issue_service_phase(card, irates["issued_credentials_per_s"])
+    by_path["keylife_session"], issued = keylife_session_phase(card, dict(
+        irates, verify_per_s=vrate, proofs_per_s=prate, show_verify_per_s=srate))
+    by_path["ct_probe"] = ct_probe_phase(card, issued)
     log("done", seconds=time.perf_counter() - started, card=card)
     kern["launches"] = sum(by_path.values())
     kern["launches_by_path"] = by_path

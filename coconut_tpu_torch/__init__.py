@@ -23,15 +23,21 @@ layout and names and imports nothing from it:
   backend.py
            the host spec backend (the services' fallback and bisection
            oracle) and the backend registry ("torch", "spec")
+  keylife/ the dealerless key lifecycle: online DKG, proactive refresh and
+           t/n reshare rounds, the epoch registry and the manager that
+           rolls new key sets into live services (host spec)
   serve/, engine/, issue/, stream.py, retry.py, faults.py, metrics.py,
   obs/, state/
            the host layers: the online verify service CredentialService
-           on its execution engine, the threshold-issuance service
+           on its execution engine, the ProtocolEngine serving all five
+           phases (prepare, mint, verify, show-prove, show-verify) on one
+           pool with epoch-keyed verkeys, the threshold-issuance service
            IssuanceService (quorum fan-out over signing authorities,
            hedging, verify-before-release), load generation with the mixed
            verify + issue workload (serve/loadgen.py), the checkpointed
            verify_stream, the retry / fault / dead-letter supervision,
-           metrics and tracing
+           metrics and tracing; serve/loadgen.py also drives full
+           credential sessions (run_session_loadgen)
 
 Entry points run on `cuda` unless the caller passes device="cpu".
 """

@@ -14,13 +14,15 @@ The issuance converters take the JAX package's holders by their fields
 the key), `signature_from`, `request_from` (a SignatureRequest, its cached
 h kept) and `blind_signature_from`. ElGamal keys are an int and a point,
 the same objects in both packages. Tests feed both packages the same state
-through them.
+through them. `keyset_from` carries a reference keylife.KeySet across
+(signers, verkey, epoch, gen, threshold, QUAL and excluded).
 """
 
 import numpy as np
 import torch
 
 from .keygen import Signer
+from .keylife.epoch import KeySet
 from .params import GroupContext, Params
 from .signature import BlindSignature, Sigkey, Signature, SignatureRequest, Verkey
 
@@ -61,3 +63,15 @@ def request_from(req):
 
 def blind_signature_from(bs):
     return BlindSignature(bs.h, bs.blinded)
+
+
+def keyset_from(ks):
+    return KeySet(
+        ks.epoch,
+        ks.gen,
+        ks.threshold,
+        [signer_from(s) for s in ks.signers],
+        verkey_from(ks.vk) if ks.vk is not None else None,
+        qual=ks.qual,
+        excluded=ks.excluded,
+    )

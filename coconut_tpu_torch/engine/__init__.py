@@ -11,12 +11,28 @@ after `coconut_tpu/engine/`:
                health registry, the watchdog loop, brownout admission and
                the generic launch/settle path.
 
-serve.CredentialService is a program registration on this engine
-(VerifyProgram).
+  phases.py    PrepareProgram, ShowProveProgram, ShowVerifyProgram: the
+               prepare, show-prove and show-verify phases as programs.
+  session.py   ProtocolEngine: all five phases on ONE engine instance —
+               full prepare -> mint -> show-prove -> show-verify sessions
+               against a single pool.
+
+serve.CredentialService and issue.IssuanceService are program
+registrations on this engine (VerifyProgram and MintProgram).
 """
 
 from .core import ExecutionEngine
 from .executor import Executor
 from .program import Program
 
-__all__ = ["ExecutionEngine", "Executor", "Program"]
+__all__ = ["ExecutionEngine", "Executor", "Program", "ProtocolEngine"]
+
+
+def __getattr__(name):
+    # ProtocolEngine pulls in serve/ and issue/ (which import engine.core):
+    # resolve it lazily to keep the package import acyclic
+    if name == "ProtocolEngine":
+        from .session import ProtocolEngine
+
+        return ProtocolEngine
+    raise AttributeError(name)

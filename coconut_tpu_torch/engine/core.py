@@ -1,4 +1,4 @@
-"""ExecutionEngine: the executor fabric the online verify service runs on
+"""ExecutionEngine: the executor fabric every online Coconut phase runs on
 — the port's copy of `coconut_tpu/engine/core.py`, with the same metric and
 span names. The engine owns:
 
@@ -9,9 +9,11 @@ span names. The engine owns:
   THE POOL     Executor workers (engine/executor.py), one per device,
                plus the optional mesh-sharded lane (which the port cannot
                build yet: its services refuse `mesh=`, but the engine
-               stays mesh-agnostic). The placer routes each coalesced
-               batch by its program's rules; new (program, placement,
-               shape) keys are counted under "%ns_jit_shapes".
+               stays mesh-agnostic). One pool serves every registered
+               pool program: executors carry a per-program dispatch
+               registry (`_seed_pool_program`), and the placer routes
+               each coalesced batch by its program's rules; new (program,
+               placement, shape) keys are counted under "%ns_jit_shapes".
   PLACERS      one thread per program popping its batcher behind its
                capacity gate.
   SELF-HEALING the per-executor circuit breakers, the hung-dispatch
@@ -21,8 +23,10 @@ span names. The engine owns:
                every join; a placer crash or the death of the last
                executor sweeps every program's futures — none dangle.
 
-serve.CredentialService subclasses this engine and registers one
-VerifyProgram. The pool's metric names ("serve_dev*", "serve_placed_*",
+serve.CredentialService and issue.IssuanceService subclass this engine and
+register one program each (VerifyProgram / MintProgram);
+engine.session.ProtocolEngine registers all five phases on one instance.
+The pool's metric names ("serve_dev*", "serve_placed_*",
 "serve_healthy_executors", ...) are the pool's whatever program a batch
 belongs to; per-program names use the program's namespace
 ("%ns_batch_wait_s", "%ns_admitted", ...)."""
@@ -67,9 +71,9 @@ class _Runtime:
 
 
 class ExecutionEngine:
-    """The shared fabric. Subclasses (CredentialService) register
-    programs, build the pool, and expose their public submit() APIs over
-    `submit_request`."""
+    """The shared fabric. Subclasses (CredentialService, IssuanceService,
+    ProtocolEngine) register programs, build the pool, and expose their
+    public submit() APIs over `submit_request`."""
 
     def __init__(
         self,
@@ -195,6 +199,15 @@ class ExecutionEngine:
             placement="sharded",
         )
         return self._mesh_executor
+
+    def _seed_pool_program(self, program):
+        """Give every pool executor `program`'s device-pinned dispatch
+        closure (the cross-program multiplexing seam)."""
+        for ex in self._executors:
+            made = program.make_dispatch(device=ex.device)
+            if made is not None:
+                dispatch, _ = made
+                ex.seed(program.name, dispatch)
 
     def _finalize_pool(self, max_redispatch=None):
         """After the pool is built: create every executor's breaker, fix

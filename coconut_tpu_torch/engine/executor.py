@@ -1,9 +1,12 @@
 """One device's serving loop — the port's copy of
 `coconut_tpu/engine/executor.py`: an inbox worker thread running the
-launch/settle double buffer for its device, built with its program's
-device-pinned dispatch closure. (The reference's per-program dispatch
-registry, `seed` / `dispatch_for`, serves its multi-program engine, which
-is not ported yet.)
+launch/settle double buffer for its device, built with its primary
+program's device-pinned dispatch closure, plus a per-program dispatch
+registry: `seed()` registers another program's closure and
+`dispatch_for()` resolves a program name to its closure (falling back to
+the primary), so one pool multiplexes heterogeneous batches — a prepare
+batch and a show-verify batch ride the same inbox, each dispatched through
+its own program's closure.
 """
 
 import threading
@@ -49,6 +52,7 @@ class Executor:
         self.dispatch = dispatch
         self.is_async = is_async
         self.placement = placement  # "single" | "sharded"
+        self._prog_dispatch = {}
         self.busy_timer = "serve_dev%s_busy_s" % self.label
         self._cond = threading.Condition()
         self._inbox = deque()
@@ -57,6 +61,22 @@ class Executor:
         self._closed = False
         self._gen = 0
         self._thread = None
+
+    # -- program registry ----------------------------------------------------
+
+    def seed(self, program, dispatch):
+        """Register `program`'s device dispatch closure on this executor.
+        The primary program keeps the bare `.dispatch` attribute (tests
+        stub it directly)."""
+        self._prog_dispatch[program] = dispatch
+
+    def dispatch_for(self, program):
+        """The dispatch closure for `program`, falling back to the primary
+        `.dispatch` when the program was never seeded here."""
+        return self._prog_dispatch.get(program, self.dispatch)
+
+    def supports(self, program):
+        return program in self._prog_dispatch or self.dispatch is not None
 
     # -- placer side ---------------------------------------------------------
 

@@ -36,7 +36,7 @@ class Program:
 
     #: registry key; also stamped on requests, batch spans, dead letters
     name = "program"
-    #: metric namespace ("serve" for the verify program)
+    #: metric namespace ("serve", "issue", "prep", "prove", "showv")
     metric_ns = "serve"
     #: brownout SLO class (see SLO_CLASSES)
     slo_class = "standard"
@@ -59,6 +59,13 @@ class Program:
             self.retry_policy = RetryPolicy(
                 max_attempts=1, base_delay=0.0, retryable=()
             )
+
+    # -- pool seeding --------------------------------------------------------
+
+    def make_dispatch(self, device=None):
+        """(dispatch, is_async) for one pool executor, or None to reuse
+        the executor's primary dispatch closure."""
+        return None
 
     # -- admission (engine.submit_request) -----------------------------------
 
@@ -110,7 +117,7 @@ class Program:
     def run_dispatch(self, executor, payload_a, payload_b):
         """Dispatch the assembled batch on `executor`; returns the
         finalizer the engine blocks on in _settle."""
-        return executor.dispatch(payload_a, payload_b)
+        return executor.dispatch_for(self.name)(payload_a, payload_b)
 
     def make_fallback(self, payload_a, payload_b):
         """Zero-arg degraded-path callable for the retry ladder, or None."""

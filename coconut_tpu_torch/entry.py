@@ -2,8 +2,9 @@
 three kinds of forged lane (verify, BASELINE config 2), a fixture of shown
 credentials and the four kinds of forged show (show-verify, config 3), the
 keys and messages of a threshold issuance (config 4; one user key pair, or
-one a user for the issuance service), and the fused verify program with
-example operands.
+one a user for the issuance service), the issuance keys from a seeded
+dealerless DKG instead (`keylife_fixture`), and the fused verify program
+with example operands.
 
 `fixture` draws from the same seeded sequence as the JAX package's
 `__graft_entry__._fixture`, so one seed gives the same credentials in
@@ -189,6 +190,22 @@ def issue_fixture(batch, ctx="G1", seed=0x1550E, user_keys=False):
     rng = random.Random(seed)
     msgs = [[rng.randrange(R) for _ in range(MSG_COUNT)] for _ in range(batch)]
     return params, signers, esk, epk, msgs
+
+
+def keylife_fixture(seed=0x4B1F, tamper=None):
+    """(params, manager, keyset): config 4 with no trusted dealer. A
+    KeyLifecycleManager (window 3) over the issuance fixture's G1
+    label-derived params (Params.new, 6 attributes) bootstraps epoch 1 by
+    DKG (ISSUANCE_THRESHOLD-of-ISSUANCE_SIGNERS; `tamper` is run_dkg's
+    fault hook) with every rand_fr drawn from `seed`, so a run's keys
+    repeat. Later rounds (refresh, reshare) draw from the OS CSPRNG."""
+    from .keylife import KeyLifecycleManager
+
+    params = Params.new(MSG_COUNT, b"coconut-issue")
+    mgr = KeyLifecycleManager(params, label=b"coconut-keylife")
+    with seeded_draws(seed):
+        keyset = mgr.bootstrap(ISSUANCE_THRESHOLD, ISSUANCE_SIGNERS, tamper=tamper)
+    return params, mgr, keyset
 
 
 def entry(batch=64, device=None):

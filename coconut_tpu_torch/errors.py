@@ -3,9 +3,11 @@
 `PSError`, `DeserializationError`, `GeneralError`, the host layers'
 `TransientBackendError`, the services' retriable refusals
 (`ServiceRetryableError` and its `ServiceOverloadedError`,
-`ServiceBrownoutError`, `QuorumUnreachableError`, `ServiceClosedError`)
-and the stream checkpoint's `CheckpointCorruptError` /
-`CheckpointMismatchError` (`coconut_tpu/errors.py`), with the same names,
+`ServiceBrownoutError`, `QuorumUnreachableError`, `ServiceClosedError`),
+the key lifecycle's `ShareVerificationError`, `DkgAbortedError`,
+`EpochUnknownError` and `EpochRetiredError`, and the stream checkpoint's
+`CheckpointCorruptError` / `CheckpointMismatchError`
+(`coconut_tpu/errors.py`), with the same names,
 messages, stable wire codes and `retry_after_s` contract, so a caller that
 catches refusals by class or by `code` treats both packages alike."""
 
@@ -191,6 +193,82 @@ class ServiceClosedError(ServiceRetryableError):
     another replica can serve the request (`retry_after_s` 0.0)."""
 
     code = "closed"
+
+
+class ShareVerificationError(GeneralError):
+    """A Pedersen-committed share failed verification against its dealer's
+    coefficient commitments (sss.PedersenVSS.check_share), or a DVSS / DKG
+    participant refused a structurally invalid share (its own share echoed
+    back, a duplicate dealer). Carries `dealer_id`, the authority whose
+    sharing is at fault, and `round`, the key-lifecycle round label ("dkg" /
+    "refresh" / "reshare" / "dvss", or None offline). Not retriable: the
+    dealer must be excluded."""
+
+    code = "share_rejected"
+
+    def __init__(self, message, dealer_id=None, round=None):
+        super().__init__(message)
+        self.dealer_id = dealer_id
+        self.round = round
+
+
+class DkgAbortedError(ServiceRetryableError):
+    """A distributed key-generation (or proactive refresh / reshare) round
+    could not complete: after excluding the dealers named by complaints and
+    the unreachable ones, fewer than `threshold` qualified dealers remain
+    (keylife/dkg.py). Retriable: a later round may succeed. Carries
+    `needed` (the threshold t), `qualified` and `excluded` (sorted ids)."""
+
+    code = "dkg_aborted"
+
+    def __init__(
+        self, needed, qualified, excluded=(), program=None, retry_after_s=None
+    ):
+        excluded = tuple(sorted(excluded))
+        super().__init__(
+            "DKG aborted: only %d of %d required qualified dealers remain "
+            "(excluded: %s) — retry once the authority pool recovers"
+            % (qualified, needed, list(excluded) or "none"),
+            program=program,
+            retry_after_s=retry_after_s,
+        )
+        self.needed = needed
+        self.qualified = qualified
+        self.excluded = excluded
+
+
+class EpochUnknownError(CoconutError):
+    """A request named a key epoch this service has never activated (or
+    not yet). Carries `epoch` and the `live` epoch ids known when refused;
+    counted under "keylife_epoch_unknown"."""
+
+    code = "epoch_unknown"
+
+    def __init__(self, epoch, live=()):
+        super().__init__(
+            "unknown key epoch %d: this service has epochs %s live — "
+            "re-resolve the epoch set and resubmit" % (epoch, sorted(live))
+        )
+        self.epoch = epoch
+        self.live = tuple(sorted(live))
+
+
+class EpochRetiredError(CoconutError):
+    """A request named a key epoch retired out of the bounded live window
+    (keylife.EpochRegistry): its verkey is no longer served. Not
+    retriable: the credential must be re-minted under a live epoch.
+    Carries `epoch` and the `live` epoch ids; counted under
+    "keylife_epoch_retired"."""
+
+    code = "epoch_retired"
+
+    def __init__(self, epoch, live=()):
+        super().__init__(
+            "key epoch %d is retired: credentials minted under it must be "
+            "re-minted (live epochs: %s)" % (epoch, sorted(live))
+        )
+        self.epoch = epoch
+        self.live = tuple(sorted(live))
 
 
 class CheckpointCorruptError(CoconutError):

@@ -43,9 +43,7 @@ quorum.
 Differences from the reference, by the port's rules: `backend=None` is ONE
 TorchBackend on `cuda` shared by every authority and the minter (raises
 without a card; the reference's None is its host spec backend), `devices`
-is a list of `torch.device`, and `keychain=` / `install_keyset` raise
-ValueError until the key lifecycle (keylife/) is ported — the keyset
-threading stays, with None throughout.
+is a list of `torch.device`.
 """
 
 import threading
@@ -64,13 +62,6 @@ from ..serve.batcher import fail_all
 from .authority import SigningAuthority
 from .hedge import HedgePolicy, HedgeScheduler
 from .quorum import CryptoMinter, Fanout, QuorumTracker
-
-
-def _refuse_keychain():
-    raise ValueError(
-        "the key lifecycle (keychain / keysets) is not ported to the "
-        "PyTorch package yet: mint under the signers' boot keys"
-    )
 
 
 class IssuanceOrder:
@@ -134,8 +125,6 @@ class MintProgram(Program):
                 "devices list length %d != %d signers"
                 % (len(devices), len(signers))
             )
-        if keychain is not None:
-            _refuse_keychain()
         self.signers = signers
         self.params = params
         self.threshold = threshold
@@ -148,9 +137,11 @@ class MintProgram(Program):
         self._minter = minter
         self._hedge = hedge
         self._label_prefix = label_prefix
-        #: the reference's keylife.EpochRegistry seam: always None here
-        #: (keylife/ is not ported), so every fan-out mints under the
-        #: boot keys
+        #: keylife.EpochRegistry: when set, every fan-out pins the active
+        #: KeySet at open and mints under it start to finish, minted
+        #: credentials carry their epoch, and a refresh or reshare landing
+        #: mid-flight never disturbs in-flight work. None = every fan-out
+        #: mints under the boot keys.
         self.keychain = keychain
 
     def bind(self, engine):
@@ -246,10 +237,24 @@ class MintProgram(Program):
     # -- key lifecycle -------------------------------------------------------
 
     def install_keyset(self, keyset):
-        """The reference installs one keylife.KeySet here (each
-        authority's share, a per-set CryptoMinter); raises ValueError
-        until keylife/ is ported."""
-        _refuse_keychain()
+        """Install one keylife.KeySet: each authority gets its share from
+        the set's signers, and a per-set CryptoMinter (per-signer verkeys
+        for attribution, aggregated-verkey cache for the release gate) is
+        readied. KeyLifecycleManager calls this before the epoch activates,
+        so every authority can sign under it the instant fan-outs pin it.
+        A reshare's new quorum size takes effect for fan-outs opened from
+        then on; in-flight ones carry the threshold they pinned."""
+        for auth in self._authorities:
+            s = keyset.signer(auth.id)
+            if s is not None:
+                auth.install_keys(keyset.key, s.sigkey, s.verkey)
+        self._minters[keyset.key] = CryptoMinter(
+            keyset.threshold,
+            keyset.verkeys_by_id(),
+            self.params,
+            backend=self._backend,
+        )
+        self.threshold = keyset.threshold
 
     def _minter_for(self, keyset):
         if keyset is None:
@@ -824,8 +829,8 @@ class IssuanceService(ExecutionEngine):
     authority breaker, watchdog for hung signs, watchdog_interval_s the
     health-tick period (None = tests drive health_tick() by hand),
     brownout for graded shedding, hedge a hedge.HedgePolicy (None: the
-    default policy). keychain: refused (ValueError) until keylife/ is
-    ported."""
+    default policy). keychain: a keylife.EpochRegistry whose active KeySet
+    each fan-out pins (KeyLifecycleManager.attach installs the sets)."""
 
     def __init__(
         self,

@@ -19,7 +19,7 @@ from .errors import UnsupportedNoOfMessages
 from .ops.fields import R
 from .pok_vc import Proof
 from .ps import (
-    SPEC, PoKOfSignature, PoKOfSignatureProof, challenge_bytes, device_backend, show_bases,
+    PoKOfSignature, PoKOfSignatureProof, challenge_bytes, device_backend, is_spec, show_bases,
 )
 from .signature import fiat_shamir_challenge
 from .sss import rand_fr
@@ -42,16 +42,17 @@ def batch_show(sigs, vk, params, messages_list, revealed_msg_indices, backend=No
     """Batched prover side of Show: the proofs `show` makes, one a
     credential, with the group operations on `backend` (TorchBackend's
     async MSM primitives; `None` is a TorchBackend on `cuda`, which raises
-    without a card; `ps.SPEC` runs `show` credential by credential on the
-    host). All credentials share one revealed-index set. Returns (proofs,
-    challenges, revealed_msgs_list)."""
+    without a card; a name goes through backend.get_backend, and `ps.SPEC`
+    or a SpecBackend runs `show` credential by credential on the host). All
+    credentials share one revealed-index set. Returns (proofs, challenges,
+    revealed_msgs_list)."""
     backend = device_backend(backend)
     B = len(sigs)
     if len(messages_list) != B:
         raise ValueError(
             "batch size mismatch: %d sigs, %d message vectors" % (B, len(messages_list))
         )
-    if backend == SPEC or B == 0:
+    if is_spec(backend) or B == 0:
         out = [show(s, vk, params, m, revealed_msg_indices) for s, m in zip(sigs, messages_list)]
         return [o[0] for o in out], [o[1] for o in out], [o[2] for o in out]
     ctx = params.ctx

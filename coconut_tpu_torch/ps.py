@@ -25,8 +25,9 @@ backend; one that mixes sets (ragged) is verified proof by proof with the
 spec, as the reference does, and counted in COUNTS
 ("show_verify_ragged_fallback": ragged batches a backend was given for,
 "show_verify_ragged_proofs": their proofs). `backend=None` is a
-TorchBackend on `cuda` (it raises without a card); the sequential host
-spec path is asked for by name, `backend="spec"`.
+TorchBackend on `cuda` (it raises without a card); a name ("torch",
+"spec", "python") goes through backend.get_backend, and the sequential
+host spec path is asked for by name, `backend="spec"`, or a SpecBackend.
 
 The refusals the reference raises as `PSError` (batch-size mismatches, an
 unknown mode, revealed messages that do not match a proof, batched mode
@@ -36,6 +37,7 @@ code. Decoding a proof (`from_bytes`) is not part of the port yet.
 
 import collections
 
+from .backend import SpecBackend, get_backend
 from .errors import PSError, UnsupportedNoOfMessages
 from .gpu.backend import TorchBackend
 from .ops import serialize as ser
@@ -45,7 +47,8 @@ from .sss import rand_fr
 
 MODES = ("exact", "batched")
 
-# The backend argument that asks for the sequential host spec path.
+# The backend name that asks for the sequential host spec path (SpecBackend;
+# "python" is its alias).
 SPEC = "spec"
 
 # The reference's metrics of the ragged fallback, as counts the caller can
@@ -80,20 +83,35 @@ def ps_verify(sig, messages, vk, params):
 
 def device_backend(backend):
     """The backend an entry point runs on: a TorchBackend on the default
-    device (`cuda`; raises without a card) when none is given, else the
-    caller's (a backend object, or SPEC for the host spec path)."""
-    return TorchBackend() if backend is None else backend
+    device (`cuda`; raises without a card) when none is given, a registry
+    name ("torch", "spec", "python") resolved by backend.get_backend, else
+    the caller's backend object."""
+    if backend is None:
+        return TorchBackend()
+    if isinstance(backend, str):
+        return get_backend(backend)
+    return backend
+
+
+def is_spec(backend):
+    """Whether `backend` asks for the sequential host spec path."""
+    return isinstance(backend, SpecBackend)
 
 
 def batch_verify(sigs, messages_list, vk, params, backend, mode="exact", epoch=None):
-    """One bool per credential of a batch under one verkey. `epoch` (the
-    key epoch) joins the combiners' domain separation in batched mode."""
+    """One bool per credential of a batch under one verkey. `backend` is a
+    backend object or a registry name, and required: unlike the reference,
+    whose `backend=None` is its sequential spec path, the port's None would
+    be a TorchBackend on `cuda` (ask for the spec by name, "spec"). `epoch`
+    (the key epoch) joins the combiners' domain separation in batched
+    mode."""
     if len(sigs) != len(messages_list):
         raise PSError(
             "batch size mismatch: %d sigs, %d message vectors"
             % (len(sigs), len(messages_list))
         )
     _check_mode(mode)
+    backend = device_backend(backend)
     if mode == "exact":
         return backend.batch_verify(sigs, messages_list, vk, params)
 
@@ -190,7 +208,7 @@ def batch_show_verify(
     uniform = bool(proofs) and all(
         p.revealed_msg_indices == proofs[0].revealed_msg_indices for p in proofs
     )
-    spec = backend == SPEC
+    spec = is_spec(backend)
     if mode == "batched" and spec:
         raise PSError("mode='batched' requires a backend")
     if not spec and uniform:

@@ -27,7 +27,11 @@ demux -> future resolves. Metrics: "serve_latency_s", "serve_dev*",
 Differences from the reference, by the port's rules: `backend=None` is a
 TorchBackend on `cuda` (raises without a card; the reference's None is its
 host spec backend), `devices` is an int or a list of `torch.device`, and
-`mesh=` raises ValueError until sharding is ported.
+`mesh=` raises ValueError until sharding is ported. `CredentialService`
+also takes `keychain=` (a keylife.EpochRegistry), which the reference's
+passes to its VerifyProgram only through ProtocolEngine: credentials then
+verify under their mint epoch's verkey, and `submit` refuses an unknown or
+retired epoch typed before admission, as ProtocolEngine.submit_verify does.
 """
 
 import time
@@ -67,7 +71,13 @@ class VerifyProgram(Program):
         retry_policy,
         fallback_dispatch,
         bisector,
+        keychain=None,
     ):
+        if keychain is not None and mode in ("grouped", "batched"):
+            # grouped/batched modes fold the whole batch into one device
+            # bool; per-epoch verkeys need per-group dispatch, which
+            # defeats it
+            raise ValueError("keychain requires per_credential mode")
         self.backend = backend
         self.vk = vk
         self.params = params
@@ -79,6 +89,56 @@ class VerifyProgram(Program):
         self.retry_policy = retry_policy
         self._fallback_dispatch = fallback_dispatch
         self._bisector = bisector
+        #: keylife.EpochRegistry: when set, each credential's `epoch`
+        #: attribute resolves the verkey it verifies under (TorchBackend's
+        #: static-operand LRU keys on the verkey, so per-epoch tables
+        #: coexist); credentials without one fall back to the boot `vk`
+        self.keychain = keychain
+
+    # -- epoch resolution ----------------------------------------------------
+
+    def vk_for_epoch(self, epoch):
+        """The verkey a credential minted under `epoch` verifies against.
+        Raises the typed EpochUnknownError / EpochRetiredError — at submit
+        time via the engine's pre-validation, or from inside a dispatch
+        when an epoch retires mid-flight (the batch then fails typed)."""
+        if epoch is None or self.keychain is None:
+            return self.vk
+        return self.keychain.resolve(epoch).vk
+
+    def _dispatch_by_epoch(self, fn, sigs, messages_list):
+        """Split one coalesced batch by mint epoch and dispatch each group
+        under its epoch's verkey, launching every group before finalizing
+        any; the returned finalize thunk reassembles the verdicts by
+        index. One epoch per steady-state batch, so the common case is one
+        full-width dispatch."""
+        groups = {}
+        for i, s in enumerate(sigs):
+            groups.setdefault(getattr(s, "epoch", None), []).append(i)
+        launched = []
+        for epoch, idxs in sorted(
+            groups.items(), key=lambda kv: (kv[0] is not None, kv[0] or 0)
+        ):
+            vk = self.vk_for_epoch(epoch)
+            launched.append(
+                (
+                    idxs,
+                    fn(
+                        [sigs[i] for i in idxs],
+                        [messages_list[i] for i in idxs],
+                        vk,
+                    ),
+                )
+            )
+
+        def finalize():
+            out = [False] * len(sigs)
+            for idxs, thunk in launched:
+                for i, v in zip(idxs, thunk()):
+                    out[i] = bool(v)
+            return out
+
+        return finalize
 
     # -- engine hooks --------------------------------------------------------
 
@@ -105,14 +165,29 @@ class VerifyProgram(Program):
         return sigs, messages_list
 
     def run_dispatch(self, executor, sigs, messages_list):
-        return executor.dispatch(sigs, messages_list, self.vk, self.params)
+        # the bare `.dispatch` attribute, not the program registry: the
+        # verify program is every pool executor's primary dispatch (and
+        # tests stub `ex.dispatch` directly)
+        if self.keychain is None:
+            return executor.dispatch(sigs, messages_list, self.vk, self.params)
+        return self._dispatch_by_epoch(
+            lambda s, m, vk: executor.dispatch(s, m, vk, self.params),
+            sigs,
+            messages_list,
+        )
 
     def make_fallback(self, sigs, messages_list):
         if self._fallback_dispatch is None:
             return None
-        return lambda: self._fallback_dispatch(
-            sigs, messages_list, self.vk, self.params
-        )()
+        if self.keychain is None:
+            return lambda: self._fallback_dispatch(
+                sigs, messages_list, self.vk, self.params
+            )()
+        return lambda: self._dispatch_by_epoch(
+            lambda s, m, vk: self._fallback_dispatch(s, m, vk, self.params)(),
+            sigs,
+            messages_list,
+        )
 
     def demux(self, requests, result, sigs, messages_list, seq, attempts,
               bspan):
@@ -192,7 +267,10 @@ class CredentialService(ExecutionEngine):
     disables the thread — tests then drive `health_tick()` by hand),
     `brownout` the graded load-shedding policy, `max_redispatch` the hop
     cap for redistributed batches (default: pool size - 1, so a poisonous
-    batch can visit each survivor at most once before failing loudly)."""
+    batch can visit each survivor at most once before failing loudly).
+    `keychain`: a keylife.EpochRegistry resolving each credential's mint
+    epoch to its verkey (per_credential mode only; `vk` stays the verkey
+    of credentials without an epoch and of pad lanes)."""
 
     def __init__(
         self,
@@ -216,6 +294,7 @@ class CredentialService(ExecutionEngine):
         watchdog_interval_s=0.25,
         brownout=None,
         max_redispatch=None,
+        keychain=None,
     ):
         from ..backend import get_backend
         from ..errors import TransientBackendError
@@ -301,7 +380,9 @@ class CredentialService(ExecutionEngine):
             retry_policy,
             self._fallback_dispatch,
             self._bisector,
+            keychain=keychain,
         )
+        self.keychain = keychain
         self.register(self._program)
 
         # the device pool: one executor per device, the verify program's
@@ -330,7 +411,12 @@ class CredentialService(ExecutionEngine):
         the request's own verdict bool). Raises ServiceBrownoutError when
         graded load-shedding refuses this lane (retriable, carries a
         retry-after hint), ServiceOverloadedError at the admission bound,
-        ServiceClosedError after drain/shutdown."""
+        ServiceClosedError after drain/shutdown; with a keychain,
+        EpochUnknownError / EpochRetiredError for a credential whose mint
+        epoch does not resolve."""
+        epoch = getattr(sig, "epoch", None)
+        if self.keychain is not None and epoch is not None:
+            self.keychain.resolve(epoch)
         return self.submit_request(
             "verify", sig, messages, lane=lane, max_wait_ms=max_wait_ms
         )

@@ -26,15 +26,15 @@ copy of the parts of `coconut_tpu/signature.py` that threshold issuance
                   blind signature.
 
 `backend=None` in a batch function is a TorchBackend on `cuda` (it raises
-without a card); `backend=ps.SPEC` runs the sequential host spec
-(`backend.SpecBackend`). Draws come from `rand_fr` in the reference's order,
-so one seeded sequence gives byte-equal requests and proofs in both
-packages.
+without a card); a registry name goes through `backend.get_backend`, so
+`backend=ps.SPEC` ("spec", alias "python") runs the sequential host spec
+(`backend.SpecBackend`) and "torch" a TorchBackend on `cuda`. Draws come
+from `rand_fr` in the reference's order, so one seeded sequence gives
+byte-equal requests and proofs in both packages.
 """
 
 from .backend import (
-    SpecBackend, async_distinct_api, async_distinct_plus_offset_api,
-    async_shared_many_api,
+    async_distinct_api, async_distinct_plus_offset_api, async_shared_many_api,
 )
 from .elgamal import elgamal_encrypt
 from .errors import (
@@ -61,11 +61,11 @@ def _default_ctx(ctx):
 
 def _batch_backend(backend):
     """The backend a batch function runs on: `None` is a TorchBackend on
-    `cuda`, ps.SPEC the host spec, anything else the caller's backend."""
+    `cuda`, a registry name ("torch", "spec" = ps.SPEC, "python") its
+    backend.get_backend instance, anything else the caller's backend."""
     from . import ps  # ps imports this module
 
-    backend = ps.device_backend(backend)
-    return SpecBackend() if backend == ps.SPEC else backend
+    return ps.device_backend(backend)
 
 
 def _validate_share_ids(pairs, threshold):

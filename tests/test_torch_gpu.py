@@ -2,9 +2,11 @@
 PyTorch version on the GPU, the wrapper's checks, and the verify,
 show-verify, combined and grouped paths, the show prover, the show
 family under G2, the device hash-to-G1, the bucketed distinct MSM, a
-threshold issuance round, the online verify service and the issuance
-service (a mint at B = 16, a crashed authority) on `cuda` against the same
-paths on the CPU or the host spec, and the kernel's counts under threads.
+threshold issuance round, the online verify service, the issuance
+service (a mint at B = 16, a crashed authority) and the ProtocolEngine
+(8 full sessions over DKG keys, a refresh between two mints) on `cuda`
+against the same paths on the CPU or the host spec, and the kernel's
+counts under threads.
 
 Marked `gpu`; each test skips where no CUDA card is present. On a machine
 with one: `python -m pytest tests/test_torch_gpu.py -q`. Tolerance: exact
@@ -422,3 +424,41 @@ def test_issuance_service_on_cuda_contains_a_crashed_authority(cuda):
     assert backends[1].crashes == 1 and metrics.get_count("issue_authority_crashes") == 1
     assert svc._health_of("2").state == "quarantined"
     assert metrics.get_count("issue_minted") == 16
+
+
+def test_protocol_engine_session_round_across_a_refresh_on_cuda(cuda):
+    """ProtocolEngine(backend="torch") over keys from a seeded DKG: 8 full
+    sessions on the card (each hop one batch), a proactive refresh, then 8
+    more mints: every verify and show verdict True, every credential of
+    epoch 1, the verkey unchanged, the refreshed credentials equal to the
+    host spec's verify, the kernel launched and no plain call."""
+    from coconut_tpu_torch import metrics
+    from coconut_tpu_torch.engine import ProtocolEngine
+
+    params, mgr, ks = entry.keylife_fixture()
+    _, _, esks, epks, msgs = entry.issue_fixture(8, user_keys=True)
+    metrics.reset()
+    plain, launches = cuda_fp.PLAIN_CALLS, cuda_fp.LAUNCHES
+    eng = ProtocolEngine(ks.signers, params, 3, count_hidden=entry.ISSUANCE_HIDDEN,
+                         revealed_msg_indices=list(entry.SHOW_REVEALED), vk=ks.vk, backend="torch",
+                         max_batch=8, max_wait_ms=60000.0, keychain=mgr.registry)
+    assert eng.backend.device.type == "cuda"
+    mgr.attach(eng)
+    with eng:
+        prepared = [f.result(600.0) for f in [eng.submit_prepare(m, pk) for m, pk in zip(msgs, epks)]]
+        creds = [f.result(600.0) for f in [
+            eng.submit_mint(r, m, sk) for (r, _), m, sk in zip(prepared, msgs, esks)]]
+        assert [c.epoch for c in creds] == [1] * 8
+        assert [f.result(600.0) for f in [eng.submit_verify(c, m) for c, m in zip(creds, msgs)]] == [True] * 8
+        proofs = [f.result(600.0) for f in [eng.submit_show_prove(c, m) for c, m in zip(creds, msgs)]]
+        assert [f.result(600.0) for f in [
+            eng.submit_show_verify(p, rv, ch, epoch=1) for p, ch, rv in proofs]] == [True] * 8
+        ks_r = mgr.refresh()
+        assert ks_r.vk.to_bytes(params.ctx) == ks.vk.to_bytes(params.ctx)
+        again = [f.result(600.0) for f in [
+            eng.submit_mint(r, m, sk) for (r, _), m, sk in zip(prepared, msgs, esks)]]
+        assert [f.result(600.0) for f in [eng.submit_verify(c, m) for c, m in zip(again, msgs)]] == [True] * 8
+    assert all(ps.ps_verify(c, m, ks.vk, params) for c, m in zip(again, msgs))
+    assert cuda_fp.PLAIN_CALLS == plain and cuda_fp.LAUNCHES > launches
+    assert metrics.get_count("keylife_refreshes") == 1
+    assert mgr.registry.pin_count(1) == 0

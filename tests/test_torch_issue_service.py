@@ -878,9 +878,10 @@ def test_service_mints_byte_equal_credentials(world, blind_rows, cpu_backend):
 
 def test_entry_points_need_a_card_and_keylife_is_refused(world):
     """backend=None is a TorchBackend on cuda: the service, the minter and
-    a backend-less authority raise here, never carry on on the CPU;
-    keychain= and install_keyset raise ValueError until keylife/ is
-    ported."""
+    a backend-less authority raise here, never carry on on the CPU. The
+    key lifecycle is no longer refused: keychain= takes an EpochRegistry,
+    and install_keyset gives each authority its share of a KeySet and the
+    service the set's threshold."""
     import torch
 
     from coconut_tpu_torch.issue import CryptoMinter, IssuanceService, SigningAuthority
@@ -900,8 +901,12 @@ def test_entry_points_need_a_card_and_keylife_is_refused(world):
         ):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make()
-    with pytest.raises(ValueError):
-        IssuanceService(world.signers, world.pp, 3, backend="spec", keychain=object())
-    svc = IssuanceService(world.signers, world.pp, 3, backend="spec")
-    with pytest.raises(ValueError):
-        svc.install_keyset(object())
+    from coconut_tpu_torch.keylife import EpochRegistry, KeySet
+
+    reg = EpochRegistry()
+    svc = IssuanceService(world.signers, world.pp, 3, backend="spec", keychain=reg)
+    assert svc.keychain is reg
+    ks = KeySet(1, 0, 2, world.signers, vk=None)
+    svc.install_keyset(ks)
+    assert svc.threshold == 2
+    assert all(a._share_for(ks) is s.sigkey for a, s in zip(svc._authorities, world.signers))

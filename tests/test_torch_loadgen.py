@@ -140,8 +140,8 @@ def _refusal(call):
 
 def test_refusals_match_the_reference():
     """The argument checks raise ValueError with the reference's messages;
-    transport="rpc" and run_session_loadgen raise ValueError in the port
-    until the gateway and the protocol engine are ported."""
+    transport="rpc" raises ValueError in the port, in run_loadgen and in
+    run_session_loadgen, until the gateway is ported."""
     out = {}
     for name in PACKAGES:
         lg = _pkg(name).loadgen
@@ -164,7 +164,7 @@ def test_refusals_match_the_reference():
     with pytest.raises(ValueError, match="not ported"):
         lg.run_loadgen(None, [1], transport="rpc")
     with pytest.raises(ValueError, match="not ported"):
-        lg.run_session_loadgen(None, [1])
+        lg.run_session_loadgen(None, [1], transport="rpc")
 
 
 @pytest.mark.parametrize(

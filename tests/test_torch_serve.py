@@ -430,6 +430,8 @@ def test_slice_service_on_torch_cpu_matches_the_spec():
     The verdicts equal the JAX package's PythonBackend.batch_verify on the
     same credentials (carried across by convert.py), the pad lane is False
     and dropped by demux, and the batch went through the backend once."""
+    import torch
+
     from coconut_tpu.backend import PythonBackend
     from coconut_tpu_torch import metrics
     from coconut_tpu_torch.gpu.backend import TorchBackend
@@ -441,10 +443,19 @@ def test_slice_service_on_torch_cpu_matches_the_spec():
     pparams, pvk, psigs = _port_credentials(params, vk, sigs)
     be = _Recording(TorchBackend(device="cpu", comb_window=4))
     metrics.reset()
+    # two intra-op threads, as the other port test modules run: with
+    # torch's default of one a core in each of several workers, these
+    # small ops slow down many times over
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
     try:
-        with CredentialService(be, pvk, pparams, max_batch=4, max_wait_ms=1.0) as svc:
-            futs = [svc.submit(s, m) for s, m in zip(psigs, msgs)]
-            got = [f.result(120.0) for f in futs]
+        svc = CredentialService(be, pvk, pparams, max_batch=4, max_wait_ms=1.0)
+        # queued before start, as the other scenarios: the batcher then
+        # sees all three at its first pop and flushes them as one batch
+        futs = [svc.submit(s, m) for s, m in zip(psigs, msgs)]
+        svc.start()
+        got = [f.result(120.0) for f in futs]
+        assert svc.drain(timeout=120.0)
         assert got == want
         assert be.bits == [want + [False]]
         assert metrics.get_count("serve_pad_lanes") == 1
@@ -452,6 +463,7 @@ def test_slice_service_on_torch_cpu_matches_the_spec():
         assert metrics.get_count("serve_valid") == 2
         assert metrics.get_count("serve_invalid") == 1
     finally:
+        torch.set_num_threads(threads)
         metrics.reset()
 
 
