@@ -136,7 +136,7 @@ Phases, one line each (plus the kernel table and the result line):
      authority 2 while 4 and 5 wait — lane 0 held back, the partial
      attributed, every credential verifies; authorities 1-3 crashing —
      every future fails with QuorumUnreachableError. Mixed load:
-     run_loadgen, open loop at half the bare issuance rate for 10 s, half
+     run_loadgen, open loop at half the bare issuance rate for 3 s, half
      the arrivals to the issuance service, half to a CredentialService
      (None, max_batch=1024) over phase 17's first 1,024 credentials (one
      in 8 forged): 0 mismatches, 0 drops, 0 terminal errors; both
@@ -160,7 +160,7 @@ Phases, one line each (plus the kernel table and the result line):
      credentials presented as epoch 2 verify False, epoch 42 refuses with
      EpochUnknownError, two more reshares retire epoch 1 (EpochRetiredError
      naming live epochs [2, 3, 4]) while epoch 2 still verifies; then
-     run_session_loadgen for 20 s, closed loop, 256 clients over the 1,024
+     run_session_loadgen for 8 s, closed loop, 256 clients over the 1,024
      identities. Prints the key rounds' walls, every hop's wall, the warm
      hops' rates beside the bare rates of phases main_path, show_path,
      prove and issue, sessions/s with p50 / p99 and per-program goodput,
@@ -174,15 +174,44 @@ Phases, one line each (plus the kernel table and the result line):
      max/min of the medians beside the run-to-run spread (the largest
      max/min of one pattern's walls); two lanes a pattern equal
      BlindSignature.new on the host spec.
+ 20. nullifier: double-spend detection on phase 18's key manager and
+     users. A StateStore (WAL segments of 1 GiB) is prefilled with 2^20
+     seeded digests in the active epoch's keyspace, 16 group commits
+     (timed, and the RSS it adds). The table is built (host) and uploaded,
+     and the membership probe runs on the card for 1,024 queries (512
+     spent, 171 fresh, 171 one bit off a spent digest in the last limb,
+     170 with every limb's top bit set): its mask must equal the plain
+     version's on CPU tensors and the expected one; CUDA-event median of
+     5, torch launches (torch.profiler). A ProtocolEngine over the store
+     (keychain attached) mints 1,024 credentials under the active epoch
+     and proves three rounds of shows; an unguarded engine on the same
+     backend verifies the first round cold and warm; then, guarded: the
+     round fresh (all True, 1,024 commits, one WAL fsync), the same round
+     again (every lane DoubleSpendError with its nullifier, 1,024 probe
+     hits, 1,024 schema-4 dead letters), a mixed batch of 512 fresh, 256
+     replays and 128 duplicate pairs (each pair accepted once) in exact
+     mode and again in batched mode (a combined check), a re-randomised
+     re-show refused in domain "ecash" under its spend tag while another
+     domain accepts the credential. The store is reopened from the WAL
+     alone, compacted, reopened from the snapshot (each timed; every
+     acknowledged digest present, every replay a probe hit on the card); a
+     child python3 committing batches of 1,024 through
+     NullifierGuard.commit is SIGKILLed mid-stream (every acknowledged
+     digest present after reopening, at most one torn tail); reshares
+     retire the epoch, and the retire hook of an engine over the reopened
+     store drops its keyspaces (state_nullifiers_compacted equals their
+     size). Gates: no probe or commit error, no watchdog timeout, launches
+     and no plain call. Prints the guarded and unguarded walls, the
+     guard's probe / commit / table walls, and every time above.
 
 Each path's first call runs with the kernel's counts set to 0 just before
 it and read just after; the kernel table's `launches` is their sum, and
 `launches_by_path` holds each (g2_verify: the sum of its three paths';
 prove: the prover's and its two FS verifies'; show_g2: the prover's and
 its two verifies'; issue: the round's four stages'; issue_g2: the same;
-bucketed: its three MSMs'; serve, issue_service, keylife_session and
-ct_probe: every run of the phase, counted from its start to its end, with
-no plain call allowed).
+bucketed: its three MSMs'; serve, issue_service, keylife_session,
+ct_probe and nullifier: every run of the phase, counted from its start to
+its end, with no plain call allowed).
 
 Any failed check raises (non-zero exit). After the phases, a `done` line
 gives the script's seconds since start; then the kernel table, and last
@@ -191,11 +220,14 @@ Needs a CUDA card: without one it exits non-zero before printing results.
 """
 
 import collections
+import hashlib
 import itertools
 import json
 import os
 import random
 import secrets
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1241,7 +1273,9 @@ def serve_phase(card, honest, exact_rate):
 ISSUE_COPIES = 2  # the issuance backlog: the 1,024 orders twice
 FAULT_BATCH = 64  # the fault gates' orders (a gate, not a rate)
 HANG_BUDGET_S = 15.0  # the fault service's first watchdog budget
-MIXED_SECONDS = 10.0
+# cut from 10 s to keep the script inside its time limit: the mixed load
+# settles a backlog several times its own length
+MIXED_SECONDS = 3.0
 
 
 class _Gated:
@@ -1513,7 +1547,7 @@ def issue_service_phase(card, bare_rate):
 
 
 HOP_WAIT_MS = 600000.0  # a hop's requests flush as one full batch, never by deadline
-SESSION_SECONDS = 20.0
+SESSION_SECONDS = 8.0  # cut from 20 s to keep the script inside its time limit
 SESSION_CONCURRENCY = 256
 SPEC_LANES = 16
 # the pool's hung-dispatch floor: one executor runs every pool program, so
@@ -1813,7 +1847,7 @@ def keylife_session_phase(card, bare):
         live_epochs=mgr.registry.live_epochs(), launches=launches, plain_calls=plain,
         seconds=time.perf_counter() - started, card=card,
     )
-    return launches, (params, prepared)
+    return launches, (params, prepared), (params, prepared, mgr, users)
 
 
 CT_REPS = 7
@@ -1899,6 +1933,396 @@ def ct_probe_phase(card, issued):
     return launches
 
 
+NULL_SPENT = 1 << 20  # the spent set of the active epoch's keyspace
+NULL_CHUNK = 65536  # prefill group commits, one fsync each
+NULL_FRESH, NULL_REPLAYS, NULL_PAIRS = 512, 256, 128  # a mixed batch's lanes
+NULL_KILL_AFTER = 6  # child batches acknowledged before the SIGKILL
+# the phase's WAL segment bound: the default (8 MiB, 4 rotated segments
+# kept) drops the oldest records of a store that never compacts, and the
+# 2^20 prefill alone is ~150 MB of frames
+NULL_SEGMENT_BYTES = 1 << 30
+# the SIGKILL drill's child: commits batches of 1,024 through the guard and
+# prints each batch index once its group commit has returned (acknowledged)
+_KILL_CHILD = """
+import hashlib, sys
+from coconut_tpu_torch.state import NullifierGuard, StateStore
+guard = NullifierGuard(StateStore(sys.argv[1], replica_id="child"), use_device=False)
+b = 0
+while True:
+    batch = [hashlib.sha256(b"kill/%d/%d" % (b, i)).hexdigest() for i in range(1024)]
+    if not all(guard.commit(batch, epochs=[int(sys.argv[2])] * 1024)):
+        sys.exit("a fresh digest was refused")
+    print(b, flush=True)
+    b += 1
+"""
+
+
+def _rss_mb():
+    """This process's resident set now, in MiB (/proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / (1 << 20)
+
+
+def _settled(futs):
+    """Each future's verdict, or its exception."""
+    out = []
+    for f in futs:
+        exc = f.exception(900.0)
+        out.append(f.result(0) if exc is None else exc)
+    return out
+
+
+def _timed_calls(obj, name, walls):
+    """Wrap obj.name so each call appends its host wall (s) to `walls`."""
+    inner = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kw)
+        finally:
+            walls.append(time.perf_counter() - t0)
+
+    setattr(obj, name, timed)
+
+
+def _kill_drill(root, epoch):
+    """A child commits batches of 1,024 through NullifierGuard.commit; it is
+    SIGKILLed after NULL_KILL_AFTER acknowledged batches, and the directory
+    reopened: (acknowledged batches, digests of them not seen, torn tails)."""
+    from coconut_tpu_torch.state import StateStore
+    from coconut_tpu_torch.state.nullifier import keyspace_of
+
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _KILL_CHILD, root, str(epoch)], stdout=subprocess.PIPE,
+        text=True, cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    acked = []
+    try:
+        for line in proc.stdout:
+            acked.append(int(line))
+            if len(acked) >= NULL_KILL_AFTER:
+                break
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(60)
+        # what the child printed before it died was acknowledged too
+        acked += [int(x) for x in proc.stdout.read().split()]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    if proc.returncode != -signal.SIGKILL or len(acked) < NULL_KILL_AFTER:
+        raise AssertionError("kill drill: child exit %s after %d batches" % (proc.returncode, len(acked)))
+    torn = metrics.get_count("wal_torn_tails")
+    store = StateStore(root, replica_id="child")
+    torn = metrics.get_count("wal_torn_tails") - torn
+    ks = keyspace_of(epoch)
+    missing = sum(
+        not store.seen(ks, hashlib.sha256(b"kill/%d/%d" % (b, i)).hexdigest())
+        for b in acked for i in range(1024)
+    )
+    kept = len(store.keys(ks))
+    store.close()
+    return {"acked_batches": len(acked), "missing": missing, "torn_tails": torn,
+            "digests_on_disk": kept}
+
+
+def _expect_lanes(got, want, what):
+    """`want` per lane: True, or a nullifier hex the lane must be refused with."""
+    from coconut_tpu_torch.errors import DoubleSpendError
+
+    bad = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is True:
+            if g is not True:
+                bad.append((i, repr(g)))
+        elif not (isinstance(g, DoubleSpendError) and g.nullifier == w):
+            bad.append((i, repr(g)))
+    if bad or len(got) != len(want):
+        raise AssertionError("%s: %d lanes wrong, first %s" % (what, len(bad), bad[:3]))
+
+
+def nullifier_phase(card, session):
+    """Double-spend detection on one ProtocolEngine over a StateStore whose
+    active-epoch keyspace holds 2^20 spent digests: the device probe
+    against its plain version, fresh / replayed / mixed / batched-mode
+    batches of 1,024, domains and spend tags, restart and compaction, a
+    SIGKILLed committer, and the epoch's retirement."""
+    from coconut_tpu_torch.engine import ProtocolEngine
+    from coconut_tpu_torch.errors import DoubleSpendError
+    from coconut_tpu_torch.state import StateStore
+    from coconut_tpu_torch.state import nullifier as nf
+
+    started = time.perf_counter()
+    params, prepared, mgr, users = session
+    cuda_fp.LAUNCHES = 0
+    cuda_fp.PLAIN_CALLS = 0
+    metrics.reset()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-nullifier-")
+    root = os.path.join(tmp, "state")
+    ks = mgr.registry.active()
+    epoch = ks.epoch
+    space = nf.keyspace_of(epoch)
+    ctx = params.ctx
+    out = {"epoch": epoch, "spent": NULL_SPENT}
+    try:
+        # 1) prefill: 2^20 seeded digests in the active epoch's keyspace
+        rng = np.random.default_rng(0x5EED)
+        raw = rng.bytes(32 * NULL_SPENT)
+        spent = [raw[i:i + 32].hex() for i in range(0, len(raw), 32)]
+        rss_before = _rss_mb()
+        store = StateStore(root, replica_id="card0", segment_bytes=NULL_SEGMENT_BYTES)
+        t0 = time.perf_counter()
+        for i in range(0, NULL_SPENT, NULL_CHUNK):
+            store.put_many(space, [(d, 1) for d in spent[i:i + NULL_CHUNK]], epoch=epoch)
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_fsyncs"] = metrics.get_count("wal_fsyncs")
+        out["store_rss_mb"] = _rss_mb() - rss_before  # _data + _log of 2^20 records
+
+        # 2) the probe on the card against its plain version: 512 spent,
+        # then fresh, one bit off a spent digest in the last limb, top bit
+        dev = torch.device("cuda")
+        t0 = time.perf_counter()
+        table, n_real = nf.build_table(store.keys(space))
+        out["table_build_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_dev = nf.limbs_on(table, dev)
+        torch.cuda.synchronize()
+        out["table_upload_s"] = time.perf_counter() - t0
+        picks = rng.choice(NULL_SPENT, size=512 + 171, replace=False)
+        flipped = [spent[i][:-8] + "%08x" % (int(spent[i][-8:], 16) ^ 1) for i in picks[512:]]
+        top = ["".join("%08x" % (0x80000000 | int(v)) for v in rng.integers(0, 1 << 31, 8))
+               for _ in range(170)]
+        queries = [spent[i] for i in picks[:512]] + [rng.bytes(32).hex() for _ in range(171)]
+        queries += flipped + top
+        q = nf.digests_to_limbs(queries)
+        q_dev = nf.limbs_on(q, dev)
+        got = nf.lower_bound_hits(t_dev, n_real, q_dev).cpu().numpy()
+        t0 = time.perf_counter()
+        plain = nf.membership_probe(table, n_real, q, "cpu")
+        out["probe_plain_s"] = time.perf_counter() - t0
+        if not (np.array_equal(got, plain) and got[:512].all() and not got[512:].any()):
+            raise AssertionError("probe: cuda %d hits, plain %d, expected 512"
+                                 % (got.sum(), plain.sum()))
+        probe = lambda: nf.lower_bound_hits(t_dev, n_real, q_dev)
+        out["probe_device_ms"] = kb.time_cuda(probe, reps=5, inner=5, hold_cycles=50_000_000)
+        prof = profile(lambda: (probe(), torch.cuda.synchronize()))
+        out["probe_launches"] = prof["device_launches"]
+        out["probe_busy_ms"] = prof["device_busy_ms"]
+        out["probe_queries"] = len(queries)
+        del t_dev, q_dev
+
+        # 3) the guarded engine: mint 1,024 credentials under the active
+        # epoch, three rounds of fresh shows of them
+        be = TorchBackend()
+        _on_card(be, "TorchBackend()")
+        common = dict(
+            count_hidden=entry.ISSUANCE_HIDDEN, revealed_msg_indices=list(entry.SHOW_REVEALED),
+            vk=ks.vk, backend=be, devices=1, max_batch=BATCH, max_wait_ms=SERVE_WAIT_MS,
+            max_depth=2 * BATCH, watchdog=Watchdog(min_timeout_s=SESSION_WATCHDOG_FLOOR_S),
+        )
+        dlq = os.path.join(tmp, "dead.jsonl")
+        eng = ProtocolEngine(ks.signers, params, ks.threshold, keychain=mgr.registry,
+                             state_store=store, dead_letter_path=dlq, **common)
+        bare = ProtocolEngine(ks.signers, params, ks.threshold, keychain=mgr.registry, **common)
+        batched = ProtocolEngine(ks.signers, params, ks.threshold, showv_mode="batched",
+                                 state_store=store, **common)
+        guard = eng.nullifiers
+        _on_card(guard, "the guard's probe")
+        _on_card(batched.nullifiers, "the batched engine's guard")
+        walls = {"probe": [], "commit": [], "table": []}
+        _timed_calls(guard, "probe", walls["probe"])
+        _timed_calls(guard, "commit", walls["commit"])
+        _timed_calls(guard, "_table_for", walls["table"])
+        mgr.attach(eng)
+        hops = _Hops()
+        for e in (eng, bare, batched):
+            e.start()
+        try:
+            creds = hops.run("mint", [
+                lambda w, r=r, m=m, sk=sk: eng.submit_mint(r, m, sk, max_wait_ms=w)
+                for (r, _), (m, _, sk) in zip(prepared, users)
+            ])
+            if any(c.epoch != epoch for c in creds):
+                raise AssertionError("a credential left the mint without epoch %d" % epoch)
+            msgs = [m for m, _, _ in users]
+            rounds = [hops.run("show_prove_%d" % k, [
+                lambda w, c=c, m=m: eng.submit_show_prove(c, m, max_wait_ms=w)
+                for c, m in zip(creds, msgs)
+            ]) for k in range(3)]
+            shows, shows2, shows3 = rounds
+
+            def show_verify(engine, what, lanes, **kw):
+                futs = [engine.submit_show_verify(p[0], p[2], p[1], epoch=epoch,
+                                                  max_wait_ms=HOP_WAIT_MS, **kw) for p in lanes]
+                hops.futures.extend(futs)
+                t0 = time.perf_counter()
+                res = _settled(futs)
+                hops.walls.setdefault(what, []).append(time.perf_counter() - t0)
+                return res
+
+            def nul(p):
+                return nf.nullifier_of(p[0], p[1], epoch, params)
+
+            # unguarded walls first (cold, then warm), in the same process
+            for what in ("unguarded_cold", "unguarded"):
+                _all_true(show_verify(bare, what, shows), what)
+
+            # 3) fresh: all accepted, one group commit
+            fs0 = metrics.get_count("wal_fsyncs")
+            _all_true(show_verify(eng, "guarded_fresh", shows), "guarded fresh")
+            out["fresh_fsyncs"] = metrics.get_count("wal_fsyncs") - fs0
+            if metrics.get_count("nullifier_commits") != BATCH or out["fresh_fsyncs"] != 1:
+                raise AssertionError("fresh batch: %d commits, %d fsyncs" % (
+                    metrics.get_count("nullifier_commits"), out["fresh_fsyncs"]))
+
+            # 4) the replay: every lane typed, probed and dead-lettered
+            hits0 = metrics.get_count("nullifier_probe_hits")
+            _expect_lanes(show_verify(eng, "guarded_replay", shows), [nul(p) for p in shows],
+                          "replay")
+            out["replay_probe_hits"] = metrics.get_count("nullifier_probe_hits") - hits0
+            lines = [r for r in DeadLetterLog.read(dlq) if r["reason"] == "double_spend"]
+            if out["replay_probe_hits"] != BATCH or len(lines) != BATCH or any(
+                    r["schema"] != 4 or r["program"] != "show_verify" for r in lines):
+                raise AssertionError("replay: %d probe hits, %d dead letters"
+                                     % (out["replay_probe_hits"], len(lines)))
+
+            # 5) and 6) mixed batches, exact then batched mode: fresh lanes,
+            # replays and intra-batch duplicate pairs (each accepted once)
+            perm = random.Random(0x51A7)
+            for what, engine, fresh in (("mixed", eng, shows2), ("mixed_batched", batched, shows3)):
+                lanes = ([(p, True) for p in fresh[:NULL_FRESH]]
+                         + [(p, nul(p)) for p in shows[:NULL_REPLAYS]])
+                pairs = fresh[NULL_FRESH:NULL_FRESH + NULL_PAIRS]
+                lanes += [(p, "pair") for p in pairs] * 2
+                perm.shuffle(lanes)
+                checks0 = be.combined_checks
+                res = show_verify(engine, what, [p for p, _ in lanes])
+                _expect_lanes([r for r, (_, w) in zip(res, lanes) if w != "pair"],
+                              [w for _, w in lanes if w != "pair"], what)
+                by_pair = collections.defaultdict(list)
+                for r, (p, w) in zip(res, lanes):
+                    if w == "pair":
+                        by_pair[nul(p)].append(r)
+                if len(by_pair) != NULL_PAIRS or any(
+                        sum(r is True for r in v) != 1
+                        or sum(isinstance(r, DoubleSpendError) and r.nullifier == d for r in v) != 1
+                        for d, v in by_pair.items()):
+                    raise AssertionError("%s: a duplicate pair was not accepted exactly once" % what)
+                out[what + "_combined_checks"] = be.combined_checks - checks0
+            if out["mixed_batched_combined_checks"] < 1:
+                raise AssertionError("the batched-mode batch ran no combined check")
+
+            # 7) domains and spend tags: a re-randomised re-show in "ecash"
+            # is refused, the same credential in a second domain accepted
+            cred_bytes = creds[0].to_bytes(ctx)
+            tag = {d: nf.spend_tag_of(cred_bytes, d) for d in ("ecash", "petition/chip-smoke")}
+            res = _settled([
+                eng.submit_show_verify(shows2[0][0], shows2[0][2], shows2[0][1], epoch=epoch,
+                                       domain="ecash", tag=tag["ecash"]),
+                eng.submit_show_verify(shows3[0][0], shows3[0][2], shows3[0][1], epoch=epoch,
+                                       domain="petition/chip-smoke",
+                                       tag=tag["petition/chip-smoke"]),
+            ])
+            _all_true(res, "first spends in two domains")
+            (res,) = _settled([eng.submit_show_verify(
+                shows3[0][0], shows3[0][2], shows3[0][1], epoch=epoch, domain="ecash",
+                tag=tag["ecash"])])
+            want = nf.nullifier_of(shows3[0][0], shows3[0][1], epoch, params, domain="ecash",
+                                   tag=tag["ecash"])
+            if not (isinstance(res, DoubleSpendError) and res.nullifier == want
+                    and res.domain == "ecash"):
+                raise AssertionError("the e-cash re-spend resolved to %r" % (res,))
+        finally:
+            for e in (eng, bare, batched):
+                if not e.drain(timeout=300.0):
+                    raise AssertionError("an engine did not drain")
+        # the drained guards hold this store object: unhook the guarded
+        # engine's retirement before the directory is reopened below
+        mgr.registry._retire_hooks.remove(guard.retire_epoch)
+        out["guard_walls_s"] = walls
+        out["hop_walls_s"] = hops.walls
+        counters = metrics.snapshot()["counters"]
+        out["counters"] = {k: v for k, v in sorted(counters.items())
+                           if k.startswith(("nullifier_", "wal_", "state_", "showv_"))}
+        accepted = [nul(p) for p in shows] + [nul(p) for p in shows2[:NULL_FRESH + NULL_PAIRS]]
+        accepted += [nul(p) for p in shows3[:NULL_FRESH + NULL_PAIRS]]
+        n_records = sum(len(store.records_after(k, "card0", 0, limit=1 << 30))
+                        for k in store.keyspaces())
+        store.close()
+
+        # 8) restart from the WAL alone, compaction, restart from the snapshot
+        def reopen(what):
+            t0 = time.perf_counter()
+            st = StateStore(root, replica_id="card0", segment_bytes=NULL_SEGMENT_BYTES)
+            out[what + "_s"] = time.perf_counter() - t0
+            lost = sum(not st.seen(space, d) for d in accepted + spent[::4096])
+            replays = nf.NullifierGuard(st).probe([nul(p) for p in shows[:BATCH]],
+                                                  epochs=[epoch] * BATCH)
+            if lost or not all(replays):
+                raise AssertionError("%s: %d acknowledged digests lost, %d replays admitted"
+                                     % (what, lost, BATCH - sum(replays)))
+            return st
+
+        store = reopen("reopen_wal")
+        out["wal_records"] = n_records
+        out["wal_bytes"] = store.wal.size_bytes()
+        t0 = time.perf_counter()
+        store.compact()
+        out["compact_s"] = time.perf_counter() - t0
+        out["snapshot_bytes"] = os.path.getsize(store.snap_path)
+        store.close()
+        store = reopen("reopen_snapshot")
+
+        # 9) SIGKILL a committing child process; every acknowledged digest
+        # must be on disk when the directory reopens
+        out["kill_drill"] = _kill_drill(os.path.join(tmp, "kill"), epoch)
+        if out["kill_drill"]["missing"] or out["kill_drill"]["torn_tails"] > 1:
+            raise AssertionError("kill drill: %s" % out["kill_drill"])
+
+        # 10) retirement: reshares push the epoch out of the window, and the
+        # retire hook of an engine over the reopened store drops its keyspaces
+        final = ProtocolEngine(ks.signers, params, ks.threshold, keychain=mgr.registry,
+                               state_store=store, **common)
+        sizes = {k: len(store.keys(k)) for k in store.keyspaces()
+                 if k.startswith("nullifier/") and k.endswith("/%d" % epoch)}
+        c0 = metrics.get_count("state_nullifiers_compacted")
+        t0 = time.perf_counter()
+        reshares = 0
+        while epoch in dict(mgr.registry.live_epochs()):
+            mgr.reshare()
+            reshares += 1
+        out["retire_s"] = time.perf_counter() - t0
+        out["retire_reshares"] = reshares
+        out["retired_keyspaces"] = sizes
+        compacted = metrics.get_count("state_nullifiers_compacted") - c0
+        if compacted != sum(sizes.values()) or set(sizes) & set(store.keyspaces()):
+            raise AssertionError("retirement compacted %d of %s" % (compacted, sizes))
+        final.drain(timeout=60.0)
+        store.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    counters = metrics.snapshot()["counters"]
+    errors = {k: counters.get(k, 0) for k in ("nullifier_probe_errors", "nullifier_commit_errors",
+                                               "serve_watchdog_timeouts", "keylife_retire_hook_errors")}
+    launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    if any(errors.values()) or launches == 0 or plain:
+        raise AssertionError("nullifier phase: %s, %d launches, %d plain calls"
+                             % (errors, launches, plain))
+    guarded, unguarded = hops.walls["guarded_fresh"][-1], hops.walls["unguarded"][-1]
+    log(
+        "nullifier", batch=BATCH, guarded_over_unguarded=guarded / unguarded,
+        guarded_fresh_s=guarded, unguarded_s=unguarded,
+        table_share_of_guarded=walls["table"][0] / guarded if walls["table"] else None,
+        errors=errors, launches=launches, plain_calls=plain,
+        seconds=time.perf_counter() - started, card=card, **out,
+    )
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
@@ -1936,9 +2360,10 @@ def main():
     by_path["bucketed"] = bucketed_phase(card)
     by_path["serve"] = serve_phase(card, vhonest, vrate)
     by_path["issue_service"] = issue_service_phase(card, irates["issued_credentials_per_s"])
-    by_path["keylife_session"], issued = keylife_session_phase(card, dict(
+    by_path["keylife_session"], issued, session = keylife_session_phase(card, dict(
         irates, verify_per_s=vrate, proofs_per_s=prate, show_verify_per_s=srate))
     by_path["ct_probe"] = ct_probe_phase(card, issued)
+    by_path["nullifier"] = nullifier_phase(card, session)
     log("done", seconds=time.perf_counter() - started, card=card)
     kern["launches"] = sum(by_path.values())
     kern["launches_by_path"] = by_path

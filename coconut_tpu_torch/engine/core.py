@@ -125,6 +125,10 @@ class ExecutionEngine:
         self.max_redispatch = 1 if max_redispatch is None else max_redispatch
         self._wd_stop = threading.Event()
         self._wd_thread = None
+        #: health-history durability: journal callable + seed records,
+        #: wired by attach_health_journal(store)
+        self._health_journal = None
+        self._health_seed = {}
 
     # -- program registry ----------------------------------------------------
 
@@ -404,13 +408,50 @@ class ExecutionEngine:
     def _health_of(self, label):
         """The POOL breaker for `label`, created on first sight
         (executors can be injected post-init — tests stub the mesh lane
-        that way)."""
+        that way). With a journal attached, a new breaker first replays
+        this label's journaled record — a restarted replica remembers
+        which executors were flapping — and journals its own transitions
+        from then on."""
         h = self._healths.get(label)
         if h is None:
             h = self._healths[label] = _health.ExecutorHealth(
-                label, self.health_policy, clock=self.clock
+                label, self.health_policy, clock=self.clock,
+                journal=self._health_journal,
             )
+            seed = self._health_seed.pop(label, None)
+            if seed is not None:
+                h.restore(seed)
         return h
+
+    def attach_health_journal(self, store, keyspace="health"):
+        """Make executor-health history durable: every breaker
+        transition writes the breaker's last-writer-wins
+        `snapshot_record()` under its label in the `keyspace` keyspace of
+        `store` (a state.StateStore), and records already present replay
+        into breakers as they are (or were) created — so a replica that
+        restarts mid-flap re-quarantines the bad device and keeps its
+        ESCALATED cooldown instead of re-learning the flap from scratch.
+
+        Bounded by construction: ONE record per executor label
+        (overwritten in place, never appended) with a HISTORY_CAP'd
+        transition tail inside. Writes skip fsync: health history is
+        best-effort durable; losing the last transition to a crash costs
+        one re-learned flap, and an fsync on the hot settle path would tax
+        every breaker trip."""
+
+        def _journal(label, record):
+            store.put(keyspace, label, record, fsync=False)
+
+        self._health_journal = _journal
+        for label in store.keys(keyspace):
+            rec = store.get(keyspace, label)
+            h = self._healths.get(label)
+            if h is not None:
+                h.restore(rec)
+            else:
+                self._health_seed[label] = rec
+        for h in self._healths.values():
+            h.journal = _journal
 
     def _admits(self, ex):
         """May the placer route NEW work to `ex`? HEALTHY/SUSPECT always;

@@ -23,9 +23,13 @@ dispatch closure, and the per-program "%ns_jit_shapes" counters count the
 distinct shapes dispatched.
 engine/session.ProtocolEngine registers all five phases on one engine.
 
-`ShowVerifyProgram(nullifiers=..., dead_letters=...)` (the reference's
-double-spend guard over state.StateStore) raises ValueError until the port
-has `state/`.
+`ShowVerifyProgram(nullifiers=..., dead_letters=...)` is the double-spend
+guard: nullifiers derived at assemble time, a membership probe on the
+guard's device masking each spent lane's own bit inside the dispatch, and
+in demux the authoritative check-and-set with one WAL group commit before
+any future resolves (a failed commit fails the accepted lanes with
+TransientBackendError; a spent lane resolves to DoubleSpendError and a
+schema-v4 dead-letter line).
 """
 
 from .. import metrics
@@ -254,12 +258,6 @@ class ShowVerifyProgram(Program):
             raise ValueError(
                 "show-verify mode='batched' requires a backend"
             )
-        if nullifiers is not None or dead_letters is not None:
-            raise ValueError(
-                "ShowVerifyProgram(nullifiers=..., dead_letters=...) needs "
-                "state.nullifier, which is not ported to the PyTorch package "
-                "yet"
-            )
         self.vk = vk
         self.params = params
         self.backend = backend
@@ -273,6 +271,15 @@ class ShowVerifyProgram(Program):
         #: keylife.EpochRegistry: each ShowOrder's `epoch` picks the
         #: verkey its proof verifies (and re-hashes) against
         self.keychain = keychain
+        #: state.NullifierGuard: when set, every lane derives a nullifier
+        #: from its transcript, a device membership probe is fused ahead
+        #: of the verify bit, and accepted nullifiers are WAL-group-
+        #: committed BEFORE any future resolves — a double-spent lane
+        #: resolves to a typed DoubleSpendError
+        self.nullifiers = nullifiers
+        #: faults.DeadLetterLog: double-spend rejections append a
+        #: schema-v4 line carrying the spent nullifier
+        self.dead_letters = dead_letters
 
     def _vk_for(self, epoch):
         if epoch is None or self.keychain is None:
@@ -287,6 +294,9 @@ class ShowVerifyProgram(Program):
         def dispatch(proofs, aux):
             revealed_list, challenges = aux[0], aux[1]
             epochs = aux[2] if len(aux) > 2 else None
+            digests = aux[3] if len(aux) > 3 else None
+            null_epochs = aux[4] if len(aux) > 4 else None
+            null_domains = aux[5] if len(aux) > 5 else None
             if epochs is None:
                 out = list(batch_show_verify(
                     proofs, self.vk, params, revealed_list,
@@ -308,6 +318,24 @@ class ShowVerifyProgram(Program):
                     )
                     for i, b in zip(idxs, bits):
                         out[i] = bool(b)
+            if digests is not None and self.nullifiers is not None:
+                # fused double-spend probe: a spent lane fails ITS OWN
+                # verify bit here, inside the batch computation, not in
+                # a serial post-pass. Advisory — the table snapshot may
+                # lag a concurrent commit; demux's check-and-set under
+                # the store lock is authoritative either way, so a
+                # probe failure degrades to commit-time detection.
+                try:
+                    spent = self.nullifiers.probe(
+                        digests, null_epochs, domains=null_domains
+                    )
+                except Exception:
+                    spent = None
+                    metrics.count("nullifier_probe_errors")
+                if spent is not None:
+                    out = [
+                        bool(b) and not s for b, s in zip(out, spent)
+                    ]
             return lambda: out
 
         return dispatch, False
@@ -344,6 +372,29 @@ class ShowVerifyProgram(Program):
             )
             for r in requests
         ]
+        digests = null_epochs = null_domains = None
+        if self.nullifiers is not None:
+            from ..state.nullifier import nullifier_of
+
+            # derived BEFORE padding: pad lanes clone lane 0's digest
+            # below, and demux never looks past len(requests), so a
+            # cloned pad digest can never masquerade as a second spend
+            null_epochs = [
+                getattr(r.sig, "epoch", None) for r in requests
+            ]
+            null_domains = [
+                getattr(r.sig, "domain", None) for r in requests
+            ]
+            digests = [
+                nullifier_of(
+                    p, c, e, self.params,
+                    domain=dom, tag=getattr(r.sig, "tag", None),
+                )
+                for p, c, e, dom, r in zip(
+                    proofs, challenges, null_epochs, null_domains,
+                    requests,
+                )
+            ]
         n_pad = max(0, self.max_batch - len(requests))
         if self.pad_partial and n_pad:
             proofs.extend([proofs[0]] * n_pad)
@@ -351,20 +402,108 @@ class ShowVerifyProgram(Program):
             challenges.extend([challenges[0]] * n_pad)
             if epochs is not None:
                 epochs.extend([epochs[0]] * n_pad)
+            if digests is not None:
+                digests.extend([digests[0]] * n_pad)
+                null_epochs.extend([null_epochs[0]] * n_pad)
+                null_domains.extend([null_domains[0]] * n_pad)
             metrics.count("showv_pad_lanes", n_pad)
             bspan.set(n_pad=n_pad)
+        if digests is not None:
+            return proofs, (
+                revealed_list, challenges, epochs, digests, null_epochs,
+                null_domains,
+            )
         if epochs is not None:
             return proofs, (revealed_list, challenges, epochs)
         return proofs, (revealed_list, challenges)
 
+    def _reject_double_spend(self, req, digest, epoch, seq, lane,
+                             domain=None):
+        """Resolve one lane as a typed double-spend rejection (and
+        dead-letter it with the spent nullifier, schema v4)."""
+        from ..errors import DoubleSpendError
+
+        req.span.end(error="double_spend")
+        req.future.set_exception(DoubleSpendError(digest, epoch, domain))
+        if self.dead_letters is not None:
+            try:
+                self.dead_letters.append(
+                    seq,
+                    lane,
+                    "double_spend",
+                    trace_id=getattr(req.future, "trace_id", None),
+                    program=self.name,
+                    nullifier=digest,
+                )
+            except Exception:  # pragma: no cover - sink failure
+                metrics.count("dead_letter_errors")
+
     def demux(self, requests, result, proofs, aux, seq, attempts, bspan):
+        # NOTE: core._settle calls demux OUTSIDE its per-batch
+        # containment — an exception escaping here would crash the
+        # executor loop, so every durability failure is converted into
+        # per-lane outcomes instead of being allowed to propagate.
+        from ..errors import TransientBackendError
+
+        digests = aux[3] if len(aux) > 3 else None
+        null_epochs = aux[4] if len(aux) > 4 else None
+        null_domains = aux[5] if len(aux) > 5 else None
+        guard = self.nullifiers
         with otrace.span("demux", n=len(requests)):
             now = self.engine.clock()
             n = len(requests)
             bits = [bool(b) for b in list(result)[:n]]
+            committed = commit_err = None
+            if guard is not None and digests is not None:
+                # authoritative check-and-set: accepted lanes re-check
+                # the live set (and each other) under the store lock,
+                # then ONE WAL group commit persists the batch's new
+                # nullifiers BEFORE any future below resolves
+                try:
+                    committed = guard.commit(
+                        digests[:n],
+                        epochs=list(null_epochs[:n]),
+                        accept=bits,
+                        domains=list(null_domains[:n]),
+                    )
+                except Exception as e:
+                    commit_err = e
+                    metrics.count("nullifier_commit_errors")
             n_valid = 0
-            for req, ok in zip(requests, bits):
+            for i, (req, ok) in enumerate(zip(requests, bits)):
                 metrics.observe("showv_latency_s", now - req.t_submit)
+                if guard is not None and digests is not None:
+                    if ok and commit_err is not None:
+                        # the WAL could not persist the acceptance —
+                        # resolving True would acknowledge a fact a
+                        # restart forgets. Fail the lane retryably.
+                        req.span.end(error="nullifier_commit")
+                        req.future.set_exception(
+                            TransientBackendError(
+                                "nullifier WAL commit failed: %s"
+                                % (commit_err,)
+                            )
+                        )
+                        continue
+                    if ok and committed is not None and not committed[i]:
+                        # lost the check-and-set: a concurrent batch
+                        # (or an intra-batch duplicate) spent it first
+                        self._reject_double_spend(
+                            req, digests[i], null_epochs[i], seq, i,
+                            domain=null_domains[i],
+                        )
+                        continue
+                    if not ok and guard.seen(
+                        digests[i], null_epochs[i], null_domains[i]
+                    ):
+                        # the fused probe masked the lane's verify bit:
+                        # surface the TYPED rejection, not a bare False
+                        metrics.count("nullifier_double_spends")
+                        self._reject_double_spend(
+                            req, digests[i], null_epochs[i], seq, i,
+                            domain=null_domains[i],
+                        )
+                        continue
                 n_valid += ok
                 req.span.end(verdict=ok)
                 req.future.set_result(ok)

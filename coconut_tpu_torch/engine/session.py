@@ -26,11 +26,18 @@ A full protocol session walks one credential through four online hops:
 serve/loadgen.run_session_loadgen drives that pipeline and reports session
 latency percentiles beside per-program goodput.
 
+With `state_store=` (a state.StateStore) show-verify grows the
+double-spend guard: a NullifierGuard over the store, its membership probe
+on the backend's device (`cuda` unless the backend runs on `cpu`; a
+backend with no device — the host spec, a stub — means `cuda`, which
+raises without a card), the executor-health journal in the store's
+"health" keyspace, the guard's `retire_epoch` hooked onto the keychain,
+and, with `dead_letter_path=`, a dead-letter log indexed into the store.
+
 Differences from the reference, by the port's rules: `backend=None` is a
 TorchBackend on `cuda` shared by every program and authority (raises
-without a card; the reference's None is its host spec backend), and
-`state_store=` (the replicated nullifier plane) raises ValueError until the
-port has `state/`.
+without a card; the reference's None is its host spec backend), and the
+guard's probe runs on an explicit device with no fall-back.
 """
 
 import time
@@ -90,12 +97,6 @@ class ProtocolEngine(ExecutionEngine):
         from ..backend import get_backend
         from ..batchverify import env_batched_default
 
-        if state_store is not None:
-            raise ValueError(
-                "ProtocolEngine(state_store=...) needs state.StateStore and "
-                "the nullifier guard, which are not ported to the PyTorch "
-                "package yet"
-            )
         if backend is None or isinstance(backend, str):
             backend = get_backend(backend or "torch")
         if showv_mode is None:
@@ -128,7 +129,35 @@ class ProtocolEngine(ExecutionEngine):
         #: keylife.EpochRegistry: epoch-stamped credentials resolve their
         #: verkey by mint epoch on every phase; None = one boot verkey
         self.keychain = keychain
-        self.state_store = None
+        #: state.StateStore: the replica's durable state plane. When set,
+        #: show-verify grows the nullifier/double-spend guard (device
+        #: membership probe + WAL-group-committed check-and-set) and a
+        #: store-indexed dead-letter log
+        self.state_store = state_store
+        self.nullifiers = None
+        self.dead_letters = None
+        if state_store is not None:
+            from ..faults import DeadLetterLog
+            from ..state.nullifier import NullifierGuard
+
+            self.nullifiers = NullifierGuard(
+                state_store, device=getattr(backend, "device", None)
+            )
+            # executor-health history rides the same store — a restarted
+            # replica remembers which devices were flapping
+            self.attach_health_journal(state_store)
+            if keychain is not None and hasattr(
+                keychain, "add_retire_hook"
+            ):
+                # epoch retirement drops that epoch's nullifier keyspace
+                # wholesale and compacts the WAL under it — submit-time
+                # _check_epoch already refuses retired shows before any
+                # membership probe would run
+                keychain.add_retire_hook(self.nullifiers.retire_epoch)
+            if dead_letter_path is not None:
+                self.dead_letters = DeadLetterLog(
+                    dead_letter_path, store=state_store
+                )
 
         common = dict(
             max_batch=max_batch, max_wait_ms=max_wait_ms,
@@ -159,7 +188,9 @@ class ProtocolEngine(ExecutionEngine):
         )
         self._showv = ShowVerifyProgram(
             vk, params, backend=backend, pad_partial=pad_partial,
-            keychain=keychain, mode=showv_mode, **common
+            keychain=keychain, mode=showv_mode,
+            nullifiers=self.nullifiers, dead_letters=self.dead_letters,
+            **common
         )
         for prog in (self._prepare, self._prove, self._showv):
             self.register(prog)

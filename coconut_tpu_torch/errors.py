@@ -5,13 +5,16 @@
 (`ServiceRetryableError` and its `ServiceOverloadedError`,
 `ServiceBrownoutError`, `QuorumUnreachableError`, `ServiceClosedError`),
 the key lifecycle's `ShareVerificationError`, `DkgAbortedError`,
-`EpochUnknownError` and `EpochRetiredError`, and the stream checkpoint's
-`CheckpointCorruptError` / `CheckpointMismatchError`
+`EpochUnknownError` and `EpochRetiredError`, the stream checkpoint's
+`CheckpointCorruptError` / `CheckpointMismatchError`, and the nullifier
+guard's `DoubleSpendError` (whose message carries its fields, so
+`_restore_wire_fields` recovers them from the text alone)
 (`coconut_tpu/errors.py`), with the same names,
 messages, stable wire codes and `retry_after_s` contract, so a caller that
 catches refusals by class or by `code` treats both packages alike."""
 
 import math
+import re
 
 
 def _finite_retry_after(value):
@@ -291,3 +294,55 @@ class CheckpointMismatchError(CoconutError):
         )
         self.stored = stored
         self.expected = expected
+
+
+class DoubleSpendError(CoconutError):
+    """A show-verify lane presented a credential whose nullifier is
+    already in the replicated nullifier set (state/nullifier.py) — the
+    Coconut paper's e-cash/petition double-spend case. NOT retriable
+    anywhere in the fleet: the nullifier is a deterministic digest of
+    the proof transcript, so replaying the same show against any
+    replica that has the fact (locally witnessed, WAL-replayed, or
+    anti-entropy-replicated) yields the same rejection. Carries the
+    `nullifier` hex digest, the `epoch` it is scoped to, and the
+    application `domain` when the show was domain-scoped (petition
+    campaign, e-cash — see state/nullifier.py). Counted under
+    "nullifier_double_spends"."""
+
+    code = "double_spend"
+
+    # class-level defaults: an error envelope's decoder rebuilds
+    # non-retryable errors via cls.__new__ + CoconutError.__init__, which
+    # never runs this subclass __init__ — attribute reads must still
+    # succeed
+    nullifier = None
+    epoch = None
+    domain = None
+
+    def __init__(self, nullifier=None, epoch=None, domain=None):
+        super().__init__(
+            "credential already shown: nullifier %s is spent%s%s"
+            % (
+                nullifier if nullifier is not None else "<unknown>",
+                "" if epoch is None else " (epoch %d)" % epoch,
+                "" if domain is None else " [domain %s]" % domain,
+            )
+        )
+        self.nullifier = nullifier
+        self.epoch = epoch
+        self.domain = domain
+
+    def _restore_wire_fields(self, message):
+        # the envelope carries only (code, message); the message format
+        # above is part of the wire contract, so the structured fields
+        # survive the round trip — clients match on err.nullifier, not
+        # on message text
+        m = re.search(
+            r"nullifier ([0-9a-f]{64}) is spent"
+            r"(?: \(epoch (\d+)\))?(?: \[domain ([^\]]+)\])?",
+            message,
+        )
+        if m is not None:
+            self.nullifier = m.group(1)
+            self.epoch = None if m.group(2) is None else int(m.group(2))
+            self.domain = m.group(3)

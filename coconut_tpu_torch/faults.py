@@ -18,8 +18,15 @@ copy of the verify and sign halves of `coconut_tpu/faults.py`.
     line with the batch index, the credential's index within the batch,
     a reason, the batch's retry attempt history, the trace ids, the
     program and the nullifier field (schema 4, the reference's). It
-    rotates (`<path>.1`, `.2`, ...) at a size or record-count cap, and
-    each append triggers the flight recorder (obs/flight.py).
+    rotates (`<path>.1`, `.2`, ...) at a size or record-count cap, each
+    append triggers the flight recorder (obs/flight.py), and with a
+    `store` each append is also indexed into the state plane.
+
+  - `SimulatedCrash`, `WalChaos` and `ReplicationChaos` inject crashes,
+    torn writes, fsync failures and dropped anti-entropy pulls into the
+    durable state plane (state/); `ChaosSchedule` is a declarative
+    dispatch-index schedule that wraps backends in FaultyBackend and
+    describes itself for reports.
 """
 
 import json
@@ -46,10 +53,79 @@ class InjectedCrash(BaseException):
 
 
 class SimulatedCrash(Exception):
-    """A process kill simulated at a named durability seam. Unlike
-    `InjectedCrash` this is a plain Exception: a crash-point harness
-    catches it at the call site and abandons the object mid-operation, as
-    a SIGKILL would abandon the process."""
+    """A process kill simulated at a named durability seam, raised by
+    `WalChaos.crash(point)` inside the WAL / StateStore write paths.
+    Unlike `InjectedCrash` this is a plain Exception: a crash-point
+    harness catches it at the call site and abandons the store object
+    mid-operation, as a SIGKILL would abandon the process, then reopens
+    the directory to show that replay converges."""
+
+
+class WalChaos:
+    """Deterministic fault schedule for the durable state plane
+    (state/wal.py, state/store.py).
+
+      crash_at       — named crash points ("wal.pre_append",
+                       "wal.post_append", "store.mid_snapshot",
+                       "store.mid_compact") at which `crash()` raises
+                       SimulatedCrash; each fires every time it is hit,
+                       so remove the point (or swap the chaos object)
+                       before re-driving a recovered store;
+      torn_on        — 0-based WAL append indices that write only a
+                       PREFIX of the frame (fsync'd, so the torn bytes
+                       really land on disk) then raise — the
+                       mid-record kill, counted in `torn_writes`;
+      fsync_fail_on  — 0-based WAL fsync indices that raise OSError
+                       instead of syncing (a dying disk).
+
+    All schedules are index-based and deterministic, the same
+    discipline as FaultyBackend's dispatch schedules."""
+
+    def __init__(self, crash_at=(), torn_on=(), fsync_fail_on=()):
+        self.crash_at = set(crash_at)
+        self.torn_on = set(torn_on)
+        self.fsync_fail_on = set(fsync_fail_on)
+        self.torn_writes = 0
+        self.crashes = 0
+        self._fsyncs = 0
+
+    def crash(self, point):
+        if point in self.crash_at:
+            self.crashes += 1
+            raise SimulatedCrash("injected crash at %s" % point)
+
+    def fsync_fails(self):
+        idx = self._fsyncs
+        self._fsyncs += 1
+        return idx in self.fsync_fail_on
+
+    def error(self, message):
+        return SimulatedCrash(message)
+
+
+class ReplicationChaos:
+    """Replication-gap injection for the anti-entropy path
+    (state/replicate.py): `drop_pairs` is a set of (peer_id, keyspace)
+    pairs — with keyspace None matching every keyspace — whose pulls
+    are swallowed (counted under "state_antientropy_dropped"). Dropped
+    pulls retry on a later step, so clearing the schedule demonstrates
+    convergence-after-heal."""
+
+    def __init__(self, drop_pairs=()):
+        self.drop_pairs = set(drop_pairs)
+        self.dropped = 0
+
+    def drop(self, peer, keyspace):
+        hit = (peer, keyspace) in self.drop_pairs or (
+            peer,
+            None,
+        ) in self.drop_pairs
+        if hit:
+            self.dropped += 1
+        return hit
+
+    def heal(self):
+        self.drop_pairs.clear()
 
 
 _SYNC_VERIFY = frozenset({
@@ -322,6 +398,81 @@ class FaultyBackend:
         return attr
 
 
+class ChaosSchedule:
+    """A declarative chaos experiment: WHICH 0-based dispatch indices
+    crash, hang, fault, flip, or stall — one object a test, probe, or
+    bench lane can both APPLY (`wrap()` a backend) and DESCRIBE
+    (`describe()` into a report). Everything stays deterministic: the
+    schedule is pure data, the wrapped FaultyBackend's single dispatch
+    counter drives it, and `release_hangs()` is the only side-effectful
+    control (freeing every hung dispatch across every wrapped backend —
+    call it before drain so abandoned workers exit promptly)."""
+
+    def __init__(
+        self,
+        crash_on=(),
+        hang_on=(),
+        fault_on=(),
+        flip_on=(),
+        delay_on=(),
+        delay_s=0.0,
+        fail_sign_on=(),
+        crash_sign_on=(),
+        hang_sign_on=(),
+        corrupt_partial_on=(),
+    ):
+        self.crash_on = frozenset(crash_on)
+        self.hang_on = frozenset(hang_on)
+        self.fault_on = frozenset(fault_on)
+        self.flip_on = frozenset(flip_on)
+        self.delay_on = frozenset(delay_on)
+        self.delay_s = delay_s
+        self.fail_sign_on = frozenset(fail_sign_on)
+        self.crash_sign_on = frozenset(crash_sign_on)
+        self.hang_sign_on = frozenset(hang_sign_on)
+        self.corrupt_partial_on = frozenset(corrupt_partial_on)
+        self.backends = []
+
+    def wrap(self, inner, **kwargs):
+        """FaultyBackend over `inner` carrying this schedule; extra
+        kwargs (sleep, error, hang_max_s, ...) pass through."""
+        fb = FaultyBackend(
+            inner,
+            raise_on=self.fault_on,
+            flip_on=self.flip_on,
+            delay_on=self.delay_on,
+            delay_s=self.delay_s,
+            crash_on=self.crash_on,
+            hang_on=self.hang_on,
+            fail_sign_on=self.fail_sign_on,
+            crash_sign_on=self.crash_sign_on,
+            hang_sign_on=self.hang_sign_on,
+            corrupt_partial_on=self.corrupt_partial_on,
+            **kwargs,
+        )
+        self.backends.append(fb)
+        return fb
+
+    def release_hangs(self):
+        for fb in self.backends:
+            fb.hang_release.set()
+
+    def describe(self):
+        """JSON-ready description for bench/probe reports."""
+        return {
+            "crash_on": sorted(self.crash_on),
+            "hang_on": sorted(self.hang_on),
+            "fault_on": sorted(self.fault_on),
+            "flip_on": sorted(self.flip_on),
+            "delay_on": sorted(self.delay_on),
+            "delay_s": self.delay_s,
+            "fail_sign_on": sorted(self.fail_sign_on),
+            "crash_sign_on": sorted(self.crash_sign_on),
+            "hang_sign_on": sorted(self.hang_sign_on),
+            "corrupt_partial_on": sorted(self.corrupt_partial_on),
+        }
+
+
 class DeadLetterLog:
     """Append-only JSONL sink for credentials the stream could not accept.
 
@@ -339,7 +490,16 @@ class DeadLetterLog:
     `max_records`, the file rotates aside (`<path>.1` newest ..
     `<path>.<keep>` oldest, via obs/flight.rotate_if_needed — the same
     cap discipline the flight-recorder sidecar uses). `read()` reads ONE
-    file; pass the rotated names explicitly to walk history."""
+    file; pass the rotated names explicitly to walk history.
+
+    Given a `store` (state/store.py StateStore), every append is also
+    indexed into its "deadletter" keyspace — key
+    `<batch>/<credential>/<n>` -> the record — so the dead-letter index
+    survives restarts via WAL replay and replicates with the rest of the
+    state plane. The JSONL file stays the grep-able source of truth; the
+    store index is lazy-durability (fsync=False: losing the last few
+    index entries on a crash is acceptable, the JSONL line is what
+    operators act on)."""
 
     def __init__(
         self,
@@ -347,11 +507,14 @@ class DeadLetterLog:
         max_bytes=_flight.FLIGHT_MAX_BYTES,
         max_records=None,
         keep=_flight.FLIGHT_KEEP,
+        store=None,
     ):
         self.path = path
         self.max_bytes = max_bytes
         self.max_records = max_records
         self.keep = keep
+        self.store = store
+        self._indexed = 0  # store-index sequence (uniquifies keys)
         self._records = None  # lazy line count of the live file
 
     def append(
@@ -408,6 +571,21 @@ class DeadLetterLog:
         with open(self.path, "a") as f:
             f.write(json.dumps(rec, sort_keys=True) + "\n")
         self._records += 1
+        if self.store is not None:
+            self._indexed += 1
+            try:
+                self.store.put(
+                    "deadletter",
+                    "%d/%d/%d"
+                    % (rec["batch"], rec["credential"], self._indexed),
+                    rec,
+                    fsync=False,
+                )
+            except Exception:
+                # the JSONL line already landed: a failing durable
+                # index must not turn a dead-letter append into a
+                # second failure
+                metrics.count("dead_letter_index_errors")
         _flight.record(
             self.path,
             "dead_letter",

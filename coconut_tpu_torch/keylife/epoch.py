@@ -26,8 +26,9 @@ Metrics: "keylife_active_epoch" / "keylife_live_epochs" gauges;
 "keylife_activations" / "keylife_retirements" / "keylife_epoch_unknown" /
 "keylife_epoch_retired" counters.
 
-`store=` (the reference journals transitions into a state.StateStore)
-raises ValueError until the port has `state/`'s store.
+`store=` (a state.StateStore) journals the state machine's transitions
+into the store's "epoch" keyspace, and a registry built over a store
+restores which epoch ids exist and which are retired.
 """
 
 import threading
@@ -119,14 +120,27 @@ class EpochRegistry:
         self._active = None  # epoch id
         self._max_registered = 0
         self._retired = set()  # epoch ids retired out of the window
-        if store is not None:
-            raise ValueError(
-                "EpochRegistry(store=...) journals into state.StateStore, "
-                "which is not ported to the PyTorch package yet"
-            )
+        #: state.StateStore: the registry journals its state-machine
+        #: transitions into the "epoch" keyspace. Key material is NOT
+        #: journaled (shares cannot round-trip through a replicated log);
+        #: what survives a restart is the METADATA — which epoch ids
+        #: exist and which are retired — so a restarted replica keeps
+        #: refusing retired-epoch credentials and never re-issues an
+        #: already-used epoch id, even before its keysets are re-installed
+        #: by the lifecycle manager.
+        self._store = store
         #: callbacks fired after the registry lock is released, once per
-        #: retired epoch id (hooks may do I/O)
+        #: retired epoch id — the nullifier guard hangs its keyspace
+        #: compaction here (state/nullifier.py retire_epoch); hooks may
+        #: fsync and compact a WAL
         self._retire_hooks = []
+        if store is not None:
+            for key in store.keys("epoch"):
+                epoch = int(key)
+                self._max_registered = max(self._max_registered, epoch)
+                rec = store.get("epoch", key)
+                if rec and rec.get("event") == "retired":
+                    self._retired.add(epoch)
         metrics.set_gauge("keylife_active_epoch", 0)
         metrics.set_gauge("keylife_live_epochs", 0)
 
@@ -145,6 +159,12 @@ class EpochRegistry:
                 except Exception:  # pragma: no cover - defensive
                     metrics.count("keylife_retire_hook_errors")
 
+    def _journal_locked(self, epoch, event):
+        if self._store is not None:
+            self._store.put(
+                "epoch", str(epoch), {"event": event}, epoch=epoch
+            )
+
     # -- registration / activation (lifecycle-manager side) ------------------
 
     def next_epoch(self):
@@ -162,6 +182,7 @@ class EpochRegistry:
                 )
             self._entries[keyset.epoch] = _Entry(keyset)
             self._max_registered = keyset.epoch
+            self._journal_locked(keyset.epoch, "registered")
             self._publish_locked()
 
     def activate(self, epoch):
@@ -181,6 +202,7 @@ class EpochRegistry:
             entry.state = ACTIVE
             self._active = epoch
             metrics.count("keylife_activations")
+            self._journal_locked(epoch, "active")
             victims = self._enforce_window_locked()
             self._publish_locked()
         self._fire_retire_hooks(victims)
@@ -317,6 +339,7 @@ class EpochRegistry:
                 break
             del self._entries[victim]
             self._retired.add(victim)
+            self._journal_locked(victim, "retired")
             metrics.count("keylife_retirements")
             victims.append(victim)
         return victims

@@ -22,7 +22,34 @@ The host layers report here:
       "serve_executor_crashes", "serve_redistributed_batches" /
       "_requests", "serve_redispatch_exhausted", "serve_shed_bulk",
       "serve_brownout" (gauge), "serve_health_tick_errors",
-      "future_callback_errors".
+      "future_callback_errors";
+  state/ (the durable state plane) and its consumers
+      the journal: "wal_appends" (records framed into a WAL) against
+      "wal_fsyncs" (the gap IS the group commit: one sync per engine
+      batch, not per lane), "wal_torn_tails" (torn trailing frames
+      truncated on open — exactly once per torn crash),
+      "wal_replayed_records", "wal_segments_rotated"; the store:
+      "state_records_applied" (local and remote applies),
+      "state_snapshots" / "state_snapshot_loads" /
+      "state_snapshot_corrupt" (a CRC-failed snapshot is quarantined
+      `.corrupt` and the store rebuilds from the WAL),
+      "state_compactions", "state_keyspaces_dropped",
+      "state_nullifiers_compacted" (nullifiers dropped with a retired
+      epoch); anti-entropy: "state_antientropy_pulls",
+      "state_antientropy_dropped" (pulls swallowed by injected
+      partitions), "state_replicator_errors"; the nullifier set:
+      "nullifier_commits" (accepted shows journaled BEFORE their
+      futures resolve), "nullifier_double_spends" (replays rejected
+      with DoubleSpendError), "nullifier_probe_hits" (device-probe hits
+      before the verify bit), "nullifier_probe_errors" (advisory probe
+      failures — detection moves to commit time, never admits a double
+      spend), "nullifier_commit_errors" (WAL failures that turned
+      would-be accepts into TransientBackendError: no resolve without
+      durability); "dead_letter_index_errors" / "dead_letter_errors"
+      (lazy-durability write failures, counted and survived); and the
+      breaker journal's "health_journal_errors" (journal writes that
+      raised inside a state transition — durability degrades to memory,
+      the transition never fails).
 
 Histograms keep the most recent HIST_WINDOW samples for percentiles and
 exact count / total / max over the whole run, so `snapshot()`'s

@@ -113,7 +113,7 @@ class ExecutorHealth:
     """One executor's breaker state. Thread-safe: settles report from
     executor threads while the watchdog/placer read concurrently."""
 
-    #: bounded per-breaker transition history
+    #: bounded per-breaker transition history (journaled + replayed)
     HISTORY_CAP = 16
 
     def __init__(
@@ -123,11 +123,18 @@ class ExecutorHealth:
         clock=time.monotonic,
         metric_ns="serve",
         gauge_prefix="serve_dev",
+        journal=None,
     ):
         """metric_ns / gauge_prefix: the counter namespace and health-gauge
         prefix this breaker reports under ("serve" / "serve_dev" for the
         verify pool). The state machine is surface-agnostic; only the
-        telemetry labels differ."""
+        telemetry labels differ.
+
+        `journal`: optional callable(label, record) invoked after every
+        state transition (UNDER the breaker lock — it must not call back
+        into the breaker); the engine wires it to a StateStore "health"
+        keyspace so a restarted replica remembers which executors were
+        flapping (ExecutionEngine.attach_health_journal)."""
         self.label = label
         self.policy = policy if policy is not None else HealthPolicy()
         self.clock = clock
@@ -140,8 +147,9 @@ class ExecutorHealth:
         self.quarantined_at = None
         self.cooldown_s = self.policy.probe_after_s
         self.last_reason = None
+        self.journal = journal
         #: last HISTORY_CAP transitions as (from, to, reason) — the
-        #: flap record an operator reads back
+        #: flap record an operator (or a restart) reads back
         self.history = []
         self._lock = threading.Lock()
 
@@ -151,6 +159,13 @@ class ExecutorHealth:
         self.history.append((old, new, reason))
         del self.history[: -self.HISTORY_CAP]
         metrics.set_gauge(self.gauge, new)
+        if self.journal is not None:
+            # callers hold self._lock, so hand the journal a prebuilt
+            # record instead of letting it call back into the breaker
+            try:
+                self.journal(self.label, self._record_locked())
+            except Exception:
+                metrics.count("health_journal_errors")
         if otrace.enabled():
             # instant span: one record per transition, greppable by
             # executor label in the export
@@ -256,6 +271,63 @@ class ExecutorHealth:
         additionally limited to one outstanding probe — the service
         enforces that, since it owns the batch count.)"""
         return self.state in ADMISSIBLE_STATES
+
+    # -- durability: journal record + replay -------------------------
+
+    def _record_locked(self):
+        return {
+            "state": self.state,
+            "quarantines": self.quarantines,
+            "cooldown_s": self.cooldown_s,
+            "consecutive_failures": self.consecutive_failures,
+            "reason": self.last_reason,
+            "history": [list(h) for h in self.history],
+        }
+
+    def snapshot_record(self):
+        """The journaled, last-writer-wins record for this breaker: one
+        dict per executor label, bounded by HISTORY_CAP — compaction is
+        structural (overwrite-in-place), not epoch-based."""
+        with self._lock:
+            return self._record_locked()
+
+    def restore(self, record, now=None):
+        """Adopt a journaled record on replica restart. The flap memory
+        (lifetime quarantine count, ESCALATED cooldown, history) carries
+        over verbatim; live placement state is re-derived conservatively:
+        a breaker that died QUARANTINED or PROBATION re-enters
+        QUARANTINED with the cooldown clock restarted at `now` (the
+        device gets no placement until it re-earns it through the probe
+        ladder), while HEALTHY/SUSPECT restart HEALTHY — but with the
+        remembered cooldown, so the NEXT incident still backs off from
+        where the flapping left off."""
+        with self._lock:
+            self.quarantines = int(record.get("quarantines", 0))
+            self.cooldown_s = min(
+                float(record.get("cooldown_s", self.policy.probe_after_s)),
+                self.policy.max_cooldown_s,
+            )
+            self.consecutive_failures = int(
+                record.get("consecutive_failures", 0)
+            )
+            self.history = [
+                tuple(h) for h in record.get("history", ())
+            ][-self.HISTORY_CAP:]
+            prior = record.get("state", HEALTHY)
+            self.probe_ok = 0
+            if prior in (QUARANTINED, PROBATION):
+                self.quarantined_at = (
+                    self.clock() if now is None else now
+                )
+                self._transition(
+                    QUARANTINED,
+                    "restored from journal (was %s: %s)"
+                    % (prior, record.get("reason")),
+                )
+            else:
+                # no transition — HEALTHY is the constructor state and
+                # journaling a no-op restore would churn the store
+                metrics.set_gauge(self.gauge, self.state)
 
 
 class Watchdog:

@@ -270,7 +270,10 @@ class CredentialService(ExecutionEngine):
     batch can visit each survivor at most once before failing loudly).
     `keychain`: a keylife.EpochRegistry resolving each credential's mint
     epoch to its verkey (per_credential mode only; `vk` stays the verkey
-    of credentials without an epoch and of pad lanes)."""
+    of credentials without an epoch and of pad lanes). `state_store`: a
+    state.StateStore the service keeps, as the reference's does; a
+    verify-only service carries no nullifier guard (double spends live
+    on the show-verify lane, engine/phases.py)."""
 
     def __init__(
         self,
@@ -294,6 +297,7 @@ class CredentialService(ExecutionEngine):
         watchdog_interval_s=0.25,
         brownout=None,
         max_redispatch=None,
+        state_store=None,
         keychain=None,
     ):
         from ..backend import get_backend
@@ -335,6 +339,7 @@ class CredentialService(ExecutionEngine):
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
         self.pad_partial = pad_partial and mode == "per_credential"
+        self.state_store = state_store
 
         self._fallback_dispatch = (
             _fallback_dispatcher(fallback_backend, mode)

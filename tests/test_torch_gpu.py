@@ -5,8 +5,9 @@ family under G2, the device hash-to-G1, the bucketed distinct MSM, a
 threshold issuance round, the online verify service, the issuance
 service (a mint at B = 16, a crashed authority) and the ProtocolEngine
 (8 full sessions over DKG keys, a refresh between two mints) on `cuda`
-against the same paths on the CPU or the host spec, and the kernel's
-counts under threads.
+against the same paths on the CPU or the host spec, the kernel's counts
+under threads, and the nullifier set's membership probe on `cuda` against
+its plain version on CPU tensors over a 2^16-row table.
 
 Marked `gpu`; each test skips where no CUDA card is present. On a machine
 with one: `python -m pytest tests/test_torch_gpu.py -q`. Tolerance: exact
@@ -462,3 +463,30 @@ def test_protocol_engine_session_round_across_a_refresh_on_cuda(cuda):
     assert cuda_fp.PLAIN_CALLS == plain and cuda_fp.LAUNCHES > launches
     assert metrics.get_count("keylife_refreshes") == 1
     assert mgr.registry.pin_count(1) == 0
+
+
+def test_membership_probe_on_cuda_equals_plain_version(cuda, tmp_path):
+    """2^16 spent digests; 1,024 queries: 512 spent, 256 one bit off a spent
+    digest in the last limb, 128 fresh, 128 with every limb's top bit set.
+    The cuda mask equals the CPU plain version's and the expected one; the
+    guard on cuda gives the same flags through a StateStore."""
+    from coconut_tpu_torch.state import NullifierGuard, StateStore
+    from coconut_tpu_torch.state import nullifier as nf
+
+    rng = np.random.default_rng(0x2016)
+    spent = [rng.bytes(32).hex() for _ in range(1 << 16)]
+    flipped = [d[:-8] + "%08x" % (int(d[-8:], 16) ^ 1) for d in spent[512:768]]
+    top = ["".join("%08x" % (0x80000000 | int(v)) for v in rng.integers(0, 1 << 31, 8))
+           for _ in range(128)]
+    queries = spent[:512] + flipped + [rng.bytes(32).hex() for _ in range(128)] + top
+    table, n = nf.build_table(spent)
+    q = nf.digests_to_limbs(queries)
+    got = nf.membership_probe(table, n, q, cuda)
+    torch.cuda.synchronize()
+    assert np.array_equal(got, nf.membership_probe(table, n, q, "cpu"))
+    assert got[:512].all() and not got[512:].any()
+    store = StateStore(str(tmp_path / "s"))
+    guard = NullifierGuard(store, device=cuda)
+    assert guard.commit(spent[:4096], epochs=[1] * 4096) == [True] * 4096
+    assert guard.probe(queries[:8] + spent[4096:4104], epochs=[1] * 16) == [True] * 8 + [False] * 8
+    store.close()

@@ -283,11 +283,20 @@ def test_registry_sequence_matches_the_reference():
     assert counters["keylife_epoch_unknown"] == 2  # the pending epoch and 99
 
 
-def test_registry_store_is_refused_until_state_is_ported():
+def test_registry_store_is_refused_until_state_is_ported(tmp_path):
+    """The port has `state/` now, so `store=` is accepted: a registry over
+    a StateStore journals its epochs, and a new registry over the same
+    store knows them. A window of 0 still refuses."""
     from coconut_tpu_torch.keylife import EpochRegistry
+    from coconut_tpu_torch.keylife.epoch import KeySet
+    from coconut_tpu_torch.state import StateStore
 
-    with pytest.raises(ValueError, match="not ported"):
-        EpochRegistry(store=object())
+    store = StateStore(str(tmp_path / "s"))
+    reg = EpochRegistry(store=store)
+    reg.register(KeySet(1, 0, 2, [], None))
+    assert store.get("epoch", "1") == {"event": "registered"}
+    assert EpochRegistry(store=store).next_epoch() == 2
+    store.close()
     with pytest.raises(ValueError, match="window"):
         EpochRegistry(window=0)
 

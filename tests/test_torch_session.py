@@ -311,17 +311,30 @@ def test_protocol_engine_five_programs_match_the_reference(monkeypatch):
     assert port["tail"] == [True, False]
 
 
-def test_session_engine_refusals():
+def test_session_engine_refusals(tmp_path):
+    """`state_store=` and `nullifiers=` are accepted now that the port has
+    `state/`: the engine builds its guard on the backend's device (cpu
+    here) and hands it to show-verify; an unknown show-verify mode still
+    refuses."""
+    import torch
+
     from coconut_tpu_torch.engine import ProtocolEngine
     from coconut_tpu_torch.engine.phases import ShowVerifyProgram
+    from coconut_tpu_torch.state import NullifierGuard, StateStore
 
     signers = [SimpleNamespace(id=i, sigkey=None, verkey=None) for i in (1, 2)]
-    with pytest.raises(ValueError, match="not ported"):
-        ProtocolEngine(signers, None, 2, 1, [0], vk="VK", backend=StubBackend(), state_store=object())
-    with pytest.raises(ValueError, match="not ported"):
-        ShowVerifyProgram("VK", None, backend=StubBackend(), nullifiers=object())
+    be = StubBackend()
+    be.device = torch.device("cpu")
+    store = StateStore(str(tmp_path / "s"))
+    eng = ProtocolEngine(signers, None, 2, 1, [0], vk="VK", backend=be, state_store=store,
+                         dead_letter_path=str(tmp_path / "dead.jsonl"))
+    assert eng._showv.nullifiers is eng.nullifiers and eng.nullifiers.device.type == "cpu"
+    assert eng._showv.dead_letters.store is store
+    guard = NullifierGuard(store, use_device=False)
+    assert ShowVerifyProgram("VK", None, backend=be, nullifiers=guard).nullifiers is guard
     with pytest.raises(ValueError, match="unknown show-verify mode"):
         ShowVerifyProgram("VK", None, backend=StubBackend(), mode="bogus")
+    store.close()
 
 
 def test_session_loadgen_on_the_stub_engine(monkeypatch):
