@@ -29,14 +29,15 @@ Phases, one line each (plus the kernel table and the result line):
      through ps.batch_verify(mode="batched") — 1,024 true bits from ONE
      combined check and ONE final exponentiation a call, the same checks
      as above; combined verifies/s beside the exact rate. Then the
-     bisection ladder on a batch with lanes 511 (tampered sigma_2) and
-     1023 (wrong message) forged: its bits, leaves, combined checks and
-     wall time;
+     bisection ladder on the batch's first 64 lanes with lanes 62
+     (tampered sigma_2) and 63 (wrong message) forged: its bits, leaves,
+     combined checks and wall time;
   7. show_combined: the same for ps.batch_show_verify(mode="batched") on
-     the show path's honest batch, and its ladder on a batch with one show
-     in 256 forged (lanes 255 and 767 fail the pairing check and must be
-     the ladder's leaves; 511, a corrupted response, and 1023, an identity
-     sigma'_1, fail through their own bits);
+     the show path's honest batch, and its ladder on the batch's first 64
+     shows with lanes 60-63 forged (60, a wrong revealed value, and 62, a
+     doubled sigma'_2, fail the pairing check and must be the ladder's
+     leaves; 61, a corrupted response, and 63, an identity sigma'_1, fail
+     through their own bits);
   8. grouped: TorchBackend().batch_verify_grouped (the attribute-grouped
      one-bool check, q+2 Miller pairs) on the main path's honest batch —
      True from ONE final exponentiation a call (the backend's counters),
@@ -106,13 +107,13 @@ Phases, one line each (plus the kernel table and the result line):
      the expected one, no watchdog timeout, every executor HEALTHY;
      served verifies/s beside phase 4's batch_verify rate and p50/p99 of
      serve_latency_s; grouped — an honest batch all True from ONE grouped
-     check, then lane 511 forged: the dead-letter JSONL names exactly that
-     request, the rest True (wall, checks, bisections); batched — an
+     check, then its first 64 requests with lane 63 forged: the dead-letter
+     JSONL names exactly that request, the rest True (wall, checks, bisections); batched — an
      honest batch all True from ONE combined check; faults —
      FaultyBackend(raise_on={0}) under RetryPolicy(max_attempts=2,
      base_delay=0): exact bits, retries 1; lone request — one interactive
      request on an idle service with pad_partial True and False, median
-     of 5 each; stream — verify_stream over 4 batches with a checkpoint,
+     of 3 each; stream — verify_stream over 4 batches with a checkpoint,
      pipeline_depth 1 and 2 (tallies 3,584 / 512 exact), and a run
      stopped after 2 batches resumed to the same tallies; pool — served
      verifies/s of half the backlog with one executor against two on the
@@ -122,11 +123,11 @@ Phases, one line each (plus the kernel table and the result line):
      batch_prepare_blind_sign with the 1,024 public keys on the card, then
      IssuanceService(backend=None, max_batch=1024, max_wait_ms=50) — five
      authorities over one cuda TorchBackend — mints them in one cold
-     fan-out, then a backlog of 2,048 orders (the 1,024 twice, shuffled)
+     fan-out, then a backlog of the 1,024 orders again, shuffled,
      queued before start: served issued credentials/s beside phase 13's
      bare round in the same process, issue_latency_s p50 / p99, the
      authorities' dispatches, minted and hedge counts, the verkey-table
-     builds of the subsets. Gates: all 3,072 credentials verify on the
+     builds of the subsets. Gates: all 2,048 credentials verify on the
      card under the subsets' aggregated verkey, 16 lanes equal the host
      spec's Signature.aggregate of BlindSignature.new partials under a
      subset no fan-out used, no watchdog timeout, every authority
@@ -136,8 +137,9 @@ Phases, one line each (plus the kernel table and the result line):
      authority 2 while 4 and 5 wait — lane 0 held back, the partial
      attributed, every credential verifies; authorities 1-3 crashing —
      every future fails with QuorumUnreachableError. Mixed load:
-     run_loadgen, open loop at half the bare issuance rate for 3 s, half
-     the arrivals to the issuance service, half to a CredentialService
+     run_loadgen, open loop at half the bare issuance rate for 1 s, half
+     the arrivals to the issuance service (its window the load's 1 s and
+     0.5 s more: one fan-out), half to a CredentialService
      (None, max_batch=1024) over phase 17's first 1,024 credentials (one
      in 8 forged): 0 mismatches, 0 drops, 0 terminal errors; both
      sections' p50 / p99 and goodput.
@@ -160,7 +162,7 @@ Phases, one line each (plus the kernel table and the result line):
      credentials presented as epoch 2 verify False, epoch 42 refuses with
      EpochUnknownError, two more reshares retire epoch 1 (EpochRetiredError
      naming live epochs [2, 3, 4]) while epoch 2 still verifies; then
-     run_session_loadgen for 8 s, closed loop, 256 clients over the 1,024
+     run_session_loadgen for 4 s, closed loop, 64 clients over the 1,024
      identities. Prints the key rounds' walls, every hop's wall, the warm
      hops' rates beside the bare rates of phases main_path, show_path,
      prove and issue, sessions/s with p50 / p99 and per-program goodput,
@@ -169,7 +171,7 @@ Phases, one line each (plus the kernel table and the result line):
  19. ct_probe: batch_blind_sign at B = 1024 on phase 18's requests under
      the five secret-key patterns of probes/probe_ct.py (zeros, ones,
      dense maximal digits, r - 1, random), after an untimed warm-up, the
-     patterns in turn 7 times: each pattern's median wall and the host
+     patterns in turn 5 times: each pattern's median wall and the host
      encode of its secret scalars (GLV split, signed digits uploaded), the
      max/min of the medians beside the run-to-run spread (the largest
      max/min of one pattern's walls); two lanes a pattern equal
@@ -203,6 +205,34 @@ Phases, one line each (plus the kernel table and the result line):
      size). Gates: no probe or commit error, no watchdog timeout, launches
      and no plain call. Prints the guarded and unguarded walls, the
      guard's probe / commit / table walls, and every time above.
+ 21. gateway: the fleet gateway (net/) on the card. Verify: a
+     CredentialService over a fresh TorchBackend (config 2 widths, the main
+     path's 1,024 credentials with lane 1023 forged, max_batch=1024),
+     warmed with one batch, then run_loadgen closed loop at 2,048 clients
+     for 8 s direct and for 20 s through net.Replica.serve() on 127.0.0.1
+     and a GatewayClient(SocketTransport) — the 2,048 requests in flight
+     at the deadline are awaited, so each run carries at least two full
+     batches. Gates: 0 dropped futures, 0 verdict mismatches, 0 errors,
+     the forged credential False over the wire. Prints both goodputs,
+     their ratio beside the reference's 0.8 bar (not a gate),
+     rpc_overhead_s and the replica's mean decode_request ms. Fleet: two
+     ProtocolEngines (config 3/4 widths: 6 attributes, 2 hidden, {2, 3,
+     4, 5} revealed, 3-of-5 trusted-dealer keys, max_batch 64 with a
+     1.5 s window, a StateStore each) behind two replicas on their own
+     sockets with tenant tables, a ReplicaRouter with a live GossipLoop:
+     64 full sessions through router.bound on the cold fleet, one replica
+     killed 1 s after their mints went out, its 40 on the wire and in its
+     queue (every mint settles on the survivor, the victim DOWN); the victim
+     re-served on a new port, rejoining by beacon; 16 of the credentials
+     shown again, with affinity back on it; there the greedy tenant's
+     third request is refused with TenantQuotaError while
+     the fleet tenant's verify beside it passes. State: StateReplicators
+     over pull_state carry a show the rejoined replica (the witness)
+     accepted to the other, the witness is killed without a drain, the
+     replay is refused with DoubleSpendError (the nullifier restored from
+     the envelope), and again by the survivor reopened from its WAL.
+     Gates: every show True, 0 dangling futures, no
+     watchdog timeout, launches and no plain call.
 
 Each path's first call runs with the kernel's counts set to 0 just before
 it and read just after; the kernel table's `launches` is their sum, and
@@ -210,16 +240,17 @@ it and read just after; the kernel table's `launches` is their sum, and
 prove: the prover's and its two FS verifies'; show_g2: the prover's and
 its two verifies'; issue: the round's four stages'; issue_g2: the same;
 bucketed: its three MSMs'; serve, issue_service, keylife_session,
-ct_probe and nullifier: every run of the phase, counted from its start to
-its end, with no plain call allowed).
+ct_probe, nullifier and gateway: every run of the phase, counted from its
+start to its end, with no plain call allowed).
 
 Any failed check raises (non-zero exit). After the phases, a `done` line
-gives the script's seconds since start; then the kernel table, and last
+gives the script's seconds since start and each phase's; then the kernel table, and last
 the JSON result {"ok": true, "device": {...}}.
 Needs a CUDA card: without one it exits non-zero before printing results.
 """
 
 import collections
+import concurrent.futures
 import hashlib
 import itertools
 import json
@@ -260,8 +291,11 @@ from coconut_tpu_torch.stream import verify_stream
 LANES = kb.MAIN_WIDTHS[-1]  # one fp12_mul at B = 1024: 54 base products per lane
 BATCH = kb.BATCH
 FORGE_EVERY = 8
-LADDER_EVERY = 512  # verify ladder: lanes 511 and 1023 forged
-SHOW_LADDER_EVERY = 256  # show ladder: lanes 255, 511, 767 and 1023 forged
+# the bisection ladders run on the first 64 lanes with the last ones forged
+# (verify: lanes 62 and 63; show: lanes 60-63, one of each kind), cut from
+# 1,024 lanes forged apart: a check is launch-bound, ~1.3 s at any width,
+# and the cut takes a ladder from 39 checks to 13 (verify) or 15 (show)
+LADDER_BATCH = 64
 
 
 def log(phase, **kv):
@@ -503,7 +537,10 @@ def verify_combined_phase(card, be, honest, exact_rate):
     _one_check_per_call(be, res)
     rate = BATCH / res["warm_wall_s"]
 
-    fsigs, fmsgs, expect = entry.forge(params, sigs, msgs, every=LADDER_EVERY)
+    n = LADDER_BATCH - 2
+    tsigs, tmsgs, texpect = entry.forge(params, sigs[n:LADDER_BATCH], msgs[n:LADDER_BATCH], every=1)
+    fsigs, fmsgs = list(sigs[:n]) + tsigs, [list(m) for m in msgs[:n]] + tmsgs
+    expect = [True] * n + texpect
     rec = _Recorder(be, fsigs)
     ladder = _ladder(
         lambda: ps.batch_verify(fsigs, fmsgs, vk, params, rec, mode="batched"),
@@ -529,20 +566,25 @@ def show_combined_phase(card, be, honest, exact_rate):
     _one_check_per_call(be, res)
     rate = BATCH / res["warm_wall_s"]
 
-    fproofs, frmsgs, expect = entry.forge_shows(
-        params, proofs, rmsgs, every=SHOW_LADDER_EVERY
+    kinds = entry.SHOW_FORGERIES
+    n = LADDER_BATCH - len(kinds)
+    tproofs, trmsgs, texpect = entry.forge_shows(
+        params, proofs[n:LADDER_BATCH], rmsgs[n:LADDER_BATCH], every=1
     )
+    fproofs = list(proofs[:n]) + tproofs
+    frmsgs = [dict(m) for m in rmsgs[:n]] + trmsgs
+    expect = [True] * n + texpect
+    lchallenges = challenges[:LADDER_BATCH]
     # the pairing check fails on the wrong revealed value and the doubled
     # sigma'_2 only: the ladder's leaves
-    kinds = entry.SHOW_FORGERIES
     pairing_lanes = [
-        i for n, i in enumerate(range(SHOW_LADDER_EVERY - 1, BATCH, SHOW_LADDER_EVERY))
-        if kinds[n % len(kinds)] in ("wrong_revealed_value", "doubled_sigma_prime_2")
+        n + k for k, kind in enumerate(kinds)
+        if kind in ("wrong_revealed_value", "doubled_sigma_prime_2")
     ]
     rec = _Recorder(be, fproofs)
     ladder = _ladder(
         lambda: ps.batch_show_verify(
-            fproofs, vk, params, frmsgs, challenges, rec, mode="batched"
+            fproofs, vk, params, frmsgs, lchallenges, rec, mode="batched"
         ),
         rec, expect, pairing_lanes,
     )
@@ -1127,8 +1169,9 @@ def serve_phase(card, honest, exact_rate):
         "pad_lanes": metrics.get_count("serve_pad_lanes"), "executors": states,
     }
 
-    # grouped: an honest batch, then lane 511 forged
-    mid = BATCH // 2 - 1
+    # grouped: an honest batch, then the ladders' 64 requests with the last
+    # forged (cut from lane 511 of 1,024: 13 grouped checks instead of 21)
+    mid = LADDER_BATCH - 1
     with tempfile.TemporaryDirectory() as tmp:
         dl = os.path.join(tmp, "dead.jsonl")
         metrics.reset()
@@ -1139,8 +1182,9 @@ def serve_phase(card, honest, exact_rate):
         honest_checks = be.grouped_checks - checks0
         checks0 = be.grouped_checks
         svc = service(mode="grouped", dead_letter_path=dl)
-        got, forged_s, _ = _served(svc, zip(_forged_sigma_2(params, sigs, mid), msgs))
-        _expect_verdicts(got, [i != mid for i in range(BATCH)], "grouped, lane 511 forged")
+        got, forged_s, _ = _served(
+            svc, zip(_forged_sigma_2(params, sigs[:LADDER_BATCH], mid), msgs[:LADDER_BATCH]))
+        _expect_verdicts(got, [i != mid for i in range(LADDER_BATCH)], "grouped, lane 63 forged")
         named = [(r["credential"], r["program"]) for r in DeadLetterLog.read(dl)]
     if honest_checks != 1 or named != [(mid, "verify")]:
         raise AssertionError(
@@ -1184,8 +1228,8 @@ def serve_phase(card, honest, exact_rate):
         metrics.reset()
         svc = service(pad_partial=pad).start()
         walls = []
-        for k in range(5):
-            lane = (FORGE_EVERY - 2 + k) % BATCH  # lanes 6-10: lane 7 forged
+        for k in range(3):
+            lane = (FORGE_EVERY - 2 + k) % BATCH  # lanes 6-8: lane 7 forged
             t0 = time.perf_counter()
             ok = svc.submit(fsigs[lane], fmsgs[lane]).result(600.0)
             walls.append(time.perf_counter() - t0)
@@ -1270,12 +1314,14 @@ def serve_phase(card, honest, exact_rate):
     return launches
 
 
-ISSUE_COPIES = 2  # the issuance backlog: the 1,024 orders twice
+ISSUE_COPIES = 1  # the issuance backlog: the 1,024 orders once (cut from twice)
 FAULT_BATCH = 64  # the fault gates' orders (a gate, not a rate)
 HANG_BUDGET_S = 15.0  # the fault service's first watchdog budget
-# cut from 10 s to keep the script inside its time limit: the mixed load
-# settles a backlog several times its own length
-MIXED_SECONDS = 3.0
+# cut from 10 s, then 3 s, to keep the script inside its time limit. The
+# mixed load's settling does not follow its length (on an H100: 78.6 s
+# after 3 s, 80.0 s after 1.5 s, four issuance fan-outs each time), so its
+# issuance service also coalesces over the whole load: one fan-out
+MIXED_SECONDS = 1.0
 
 
 class _Gated:
@@ -1343,7 +1389,7 @@ def _wait_for(pred, what, timeout=300.0):
 def issue_service_phase(card, bare_rate):
     """The threshold-issuance service (BASELINE config 4, G1, 1,024 users
     with a key pair each, 3-of-5) on the card: one cold fan-out, a backlog
-    of 2,048 orders, the fault gates at B = 64 and the mixed verify + issue
+    of 1,024 orders, the fault gates at B = 64 and the mixed verify + issue
     load."""
     started = time.perf_counter()
     cuda_fp.LAUNCHES = 0
@@ -1510,7 +1556,7 @@ def issue_service_phase(card, bare_rate):
     metrics.reset()
     vsvc = CredentialService(None, vk, params, max_batch=BATCH).start()
     isvc = IssuanceService(signers, params, t, backend=be, max_batch=BATCH,
-                           max_wait_ms=SERVE_WAIT_MS, max_depth=4 * BATCH).start()
+                           max_wait_ms=1000.0 * MIXED_SECONDS + 500.0, max_depth=4 * BATCH).start()
     try:
         report = run_loadgen(
             vsvc, pool, duration_s=MIXED_SECONDS, arrival="open", rate_per_s=bare_rate / 2,
@@ -1547,8 +1593,8 @@ def issue_service_phase(card, bare_rate):
 
 
 HOP_WAIT_MS = 600000.0  # a hop's requests flush as one full batch, never by deadline
-SESSION_SECONDS = 8.0  # cut from 20 s to keep the script inside its time limit
-SESSION_CONCURRENCY = 256
+SESSION_SECONDS = 4.0  # cut from 20 s, then 8 s, to keep the script inside its time limit
+SESSION_CONCURRENCY = 64  # cut from 256: one wave of sessions either way
 SPEC_LANES = 16
 # the pool's hung-dispatch floor: one executor runs every pool program, so
 # its EMA mixes 0.1 s prepare batches with 2 s show-verify ones
@@ -1850,7 +1896,7 @@ def keylife_session_phase(card, bare):
     return launches, (params, prepared), (params, prepared, mgr, users)
 
 
-CT_REPS = 7
+CT_REPS = 5
 # every signed 5-bit digit at its largest magnitude (probes/probe_ct.py)
 _DENSE = sum(16 * (32**i) for i in range(51)) % R
 CT_PATTERNS = {
@@ -1869,7 +1915,7 @@ def ct_probe_phase(card, issued):
     """batch_blind_sign on one fixed B = 1024 request batch under the five
     secret patterns of probes/probe_ct.py, after an untimed warm-up: the
     call's wall and the host encode of its secret scalars (GLV split, then
-    signed digits uploaded to the card) alone, median of 7, the patterns
+    signed digits uploaded to the card) alone, median of 5, the patterns
     taken in turn each repetition. Prints max/min of the medians beside
     the run-to-run spread (the largest max/min of one pattern's walls)."""
     from coconut_tpu_torch.gpu import glv
@@ -2323,6 +2369,401 @@ def nullifier_phase(card, session):
     return launches
 
 
+GATEWAY_CONCURRENCY = 2048  # closed-loop clients: two full batches in flight
+GATEWAY_DIRECT_S = 8.0  # the 2,048 client threads take seconds to start
+# the wire run's arrivals. The replica's connection thread decodes under
+# the GIL, which slows the start of the 2,048 client threads to ~130 a
+# second (on an H100 host, 127 submitted in a 1 s run), so the run is long
+# enough for every client to submit; the requests in flight at the deadline
+# are awaited, decoded one by one
+GATEWAY_RPC_S = 20.0
+FLEET_BATCH = 64
+# the fleet's coalescing window: a hop's requests reach a replica over ~1 s
+# of decoding, and with the 50 ms window of the other phases each hop ran as
+# a string of small batches, each a full-width fan-out (on an H100, 195 s
+# for a 64-session round)
+FLEET_WAIT_MS = 1500.0
+# full sessions of the kill round; the rejoin round re-shows the first
+# FLEET_REJOIN of its credentials (a mint fan-out is host-bound, ~25 s on
+# two replicas whatever its width, so the rejoin round mints nothing)
+FLEET_SESSIONS, FLEET_REJOIN = 64, 16
+FLEET_KEY, GREEDY_KEY = "key-fleet", "key-greedy"
+GREEDY_QUOTA = 2
+GATEWAY_TIMEOUT_S = 900.0
+# the victim dies this long after the kill round's mints went out, while they
+# are on the wire and in its queue (on an H100, a kill at 0.3 s left the
+# mint hop at 83.8 s against 45.4-49.7 s at 1 s)
+KILL_AFTER_S = 1.0
+
+
+def _wire_report(rep):
+    return {k: rep[k] for k in (
+        "duration_s", "submitted", "completed", "errors", "errors_retryable",
+        "errors_terminal", "dropped_futures", "valid",
+        "invalid", "verdict_mismatches", "goodput_per_s", "batches", "mean_batch_occupancy",
+        "rejected", "shed", "latency_s", "rpc_overhead_s")}
+
+
+def _wire_gates(rep, what):
+    if (rep["dropped_futures"] or rep["verdict_mismatches"] or rep["errors"]
+            or rep["rejected"] or rep["shed"] or rep["completed"] < 2 * BATCH):
+        raise AssertionError("%s: %s" % (what, _wire_report(rep)))
+
+
+def _resolve(futs):
+    """Every future's result, waited for on one thread each: a routed
+    future fails over inside result(), so the resubmissions of a killed
+    replica's requests go out together instead of one at a time."""
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(futs)) as pool:
+        return list(pool.map(lambda f: f.result(GATEWAY_TIMEOUT_S), futs))
+
+
+def _fleet_round(router, users, tag, kill=None, creds=None):
+    """Every user through prepare -> mint -> show_prove -> show_verify on
+    the router, each session bound to its ring primary; `kill` runs while
+    the mints are in flight. Given `creds`, the round re-shows them
+    (show_prove -> show_verify) and mints nothing. Returns the show bits,
+    the sessions' final replicas, the mint futures' (first, last) replicas
+    and the seconds from the kill to the last mint settled."""
+    bound = [router.bound("%s-%d" % (tag, i)) for i in range(len(users))]
+    walls = {}
+    mints, moves, settle_s = [], [], None
+    if creds is None:
+        t0 = time.perf_counter()
+        reqs = [r for r, _ in _resolve([
+            b.submit_prepare(m, pk) for b, (m, pk, _) in zip(bound, users)])]
+        walls["prepare"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mints = [b.submit_mint(r, m, sk) for b, r, (m, _, sk) in zip(bound, reqs, users)]
+        first = [f.replica_id for f in mints]
+        if kill is not None:
+            t_kill = kill()
+        creds = _resolve(mints)
+        walls["mint"] = time.perf_counter() - t0
+        if kill is not None:
+            settle_s = time.perf_counter() - t_kill
+        moves = [(a, f.replica_id) for a, f in zip(first, mints)]
+    t0 = time.perf_counter()
+    proofs = _resolve([
+        b.submit_show_prove(c, m) for b, c, (m, _, _) in zip(bound, creds, users)])
+    walls["show_prove"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shows = [b.submit_show_verify(p, rv, ch) for b, (p, ch, rv) in zip(bound, proofs)]
+    bits = _resolve(shows)
+    walls["show_verify"] = time.perf_counter() - t0
+    _all_true(bits, "fleet round %s" % tag)
+    if any(not f.done() for f in mints + shows):
+        raise AssertionError("fleet round %s: dangling futures" % tag)
+    return {
+        "bits": bits, "replicas": [f.replica_id for f in shows], "mint_moves": moves,
+        "settle_s": settle_s, "walls": walls, "creds": creds, "shows": proofs,
+    }
+
+
+def _gateway_verify(card, honest):
+    """Phase gateway, step 1: the verify service at B = 1024 driven direct
+    and through a replica on a loopback socket."""
+    from coconut_tpu_torch import net
+
+    params, _, vk, sigs, msgs = honest
+    fsigs, fmsgs, expect = entry.forge(params, sigs, msgs, every=BATCH)  # lane 1023 forged
+    pool = list(zip(fsigs, fmsgs, expect))
+    be = TorchBackend()  # cuda, window 9, raw wire
+    _on_card(be, "the verify replica's backend")
+    # the hung-dispatch floor: behind the wire the replica's decode thread
+    # holds the GIL beside the executor's, and a batch takes several times
+    # its direct wall (on an H100 every request of a wire run failed under
+    # the default 1 s floor)
+    svc = CredentialService(be, vk, params, max_batch=BATCH, max_wait_ms=SERVE_WAIT_MS,
+                            max_depth=4 * BATCH,
+                            watchdog=Watchdog(min_timeout_s=SESSION_WATCHDOG_FLOOR_S)).start()
+    rep = client = None
+    try:
+        t0 = time.perf_counter()
+        got = [f.result(GATEWAY_TIMEOUT_S) for f in [svc.submit(s, m) for s, m, _ in pool]]
+        warm_s = time.perf_counter() - t0
+        _expect_verdicts(got, expect, "gateway warm batch")
+        metrics.reset()
+        direct = run_loadgen(svc, pool, duration_s=GATEWAY_DIRECT_S,
+                             concurrency=GATEWAY_CONCURRENCY, rng=random.Random(0x6A7E),
+                             result_timeout=GATEWAY_TIMEOUT_S)
+        log("gateway_direct", **_wire_report(direct), card=card)
+        _wire_gates(direct, "direct")
+        _healthy(svc, "direct load")
+        codec = net.WireCodec(params)
+        decode_walls = []
+        _timed_calls(codec, "decode_request", decode_walls)
+        rep = net.Replica(svc, codec, replica_id="verify")
+        client = net.GatewayClient(net.SocketTransport(rep.serve()), net.WireCodec(params))
+        metrics.reset()
+        wire_rep = run_loadgen(client, pool, duration_s=GATEWAY_RPC_S,
+                               concurrency=GATEWAY_CONCURRENCY, rng=random.Random(0x6A7F),
+                               result_timeout=GATEWAY_TIMEOUT_S, transport="rpc")
+        log("gateway_rpc", **_wire_report(wire_rep), decoded_requests=len(decode_walls),
+            decode_ms_per_request=1000.0 * statistics.mean(decode_walls),
+            watchdog_timeouts=metrics.get_count("serve_watchdog_timeouts"),
+            busy_s=metrics.timers_with_prefix("serve_dev"),
+            dispatches=metrics.counters_with_prefix("serve_dev"), card=card)
+        _wire_gates(wire_rep, "rpc")
+        _healthy(svc, "load over the wire")
+        over_wire = [client.submit_verify(fsigs[i], fmsgs[i]).result(GATEWAY_TIMEOUT_S)
+                     for i in (0, BATCH - 1)]
+        if over_wire != [True, False]:
+            raise AssertionError("over the wire: honest, forged read %s" % over_wire)
+    finally:
+        if client is not None:
+            client.close()
+        if rep is not None:
+            rep.close()
+        _drained(svc, "the verify replica's service")
+    ratio = wire_rep["goodput_per_s"] / direct["goodput_per_s"]
+    out = {
+        "batch": BATCH, "concurrency": GATEWAY_CONCURRENCY, "warm_batch_s": warm_s,
+        "direct": _wire_report(direct), "rpc": _wire_report(wire_rep),
+        "goodput_ratio_rpc_to_direct": ratio, "reference_bar": 0.8,
+        "decode_ms_per_request": 1000.0 * statistics.mean(decode_walls),
+        "decode_ms_p99": 1000.0 * metrics.percentile(decode_walls, 99),
+        "decoded_requests": len(decode_walls), "forged_over_wire": over_wire[1],
+    }
+    log("gateway_verify", **out, launches_so_far=cuda_fp.LAUNCHES, card=card)
+    return out
+
+
+
+def _gateway_fleet(card):
+    """Phase gateway, steps 2 and 3: a two-replica ProtocolEngine fleet on
+    the card behind a router with gossip and tenant tables, one replica
+    killed mid-mint and rejoining; then the state plane over the wire and
+    a replayed show refused after its witness dies."""
+    from coconut_tpu_torch import net
+    from coconut_tpu_torch.engine import ProtocolEngine
+    from coconut_tpu_torch.errors import (
+        DoubleSpendError, ServiceClosedError, TenantQuotaError, TransientBackendError,
+    )
+    from coconut_tpu_torch.state import StateReplicator, StateStore, nullifier_of
+
+    out = {}
+    # 2) two replicas of a ProtocolEngine fleet on the one card
+    fparams, signers, esks, epks, fmsgs_all = entry.issue_fixture(FLEET_SESSIONS, user_keys=True)
+    users = list(zip(fmsgs_all, epks, esks))
+    revealed = list(entry.SHOW_REVEALED)
+    root = tempfile.mkdtemp(prefix="chip-smoke-gateway-")
+    rids = ("r0", "r1")
+    stores, engines, replicas = {}, {}, {}
+
+    def fleet_engine(store, backend="torch"):
+        return ProtocolEngine(
+            signers, fparams, entry.ISSUANCE_THRESHOLD, count_hidden=entry.ISSUANCE_HIDDEN,
+            revealed_msg_indices=revealed, backend=backend, devices=1, max_batch=FLEET_BATCH,
+            max_wait_ms=FLEET_WAIT_MS, max_depth=4 * FLEET_BATCH, state_store=store,
+            watchdog=Watchdog(min_timeout_s=SESSION_WATCHDOG_FLOOR_S),
+        ).start()
+
+    def tenants():
+        table = net.TenantTable()
+        table.provision("fleet", FLEET_KEY)
+        table.provision("greedy", GREEDY_KEY, quota=GREEDY_QUOTA)
+        return table
+
+    fcodec = net.WireCodec(fparams)
+
+    def connect(rid, key=FLEET_KEY):
+        return net.GatewayClient(net.SocketTransport(replicas[rid].address), fcodec,
+                                 api_key=key, session=rid)
+
+    metrics.reset()
+    loop = router = None
+    pullers = []
+    try:
+        for rid in rids:
+            stores[rid] = StateStore(os.path.join(root, rid), replica_id=rid)
+            engines[rid] = fleet_engine(stores[rid])
+            _on_card(engines[rid].backend, "replica %s's backend" % rid)
+            replicas[rid] = net.Replica(engines[rid], fcodec, tenants=tenants(), replica_id=rid)
+            replicas[rid].serve()
+        router = net.ReplicaRouter(
+            {rid: connect(rid) for rid in rids},
+            retry_policy=RetryPolicy(max_attempts=len(rids) + 1, base_delay=0.05,
+                                     retryable=(TransientBackendError, ServiceClosedError)),
+        )
+        # pollers read through router.clients, so a rejoined replica's new
+        # client is what the next sweep polls
+        loop = net.GossipLoop(router.directory, {
+            rid: (lambda r=rid: router.clients[r].poll_beacon(timeout=5.0)) for rid in rids
+        }, interval_s=0.1).start()
+        _wait_for(lambda: all(router.directory.state(r) == net.UP for r in rids),
+                  "both replicas UP", timeout=60.0)
+
+        # one replica killed with its mints in flight, on the cold fleet
+        victim = router.candidates("kill-0")[0]
+        survivor = [r for r in rids if r != victim][0]
+        t_kill = []
+
+        def kill():
+            time.sleep(KILL_AFTER_S)  # the mints are on the wire and in the engine
+            t_kill.append(time.perf_counter())
+            replicas[victim].close()
+            return t_kill[0]
+
+        t0 = time.perf_counter()
+        killed = _fleet_round(router, users[:FLEET_SESSIONS], "kill", kill=kill)
+        kill_round_s = time.perf_counter() - t0
+        moved = sum(1 for a, b in killed["mint_moves"] if a == victim and b == survivor)
+        stayed = sum(1 for a, b in killed["mint_moves"] if b == victim)
+        if not moved or stayed:
+            raise AssertionError("kill round: %d mints moved to the survivor, %d settled on "
+                                 "the victim" % (moved, stayed))
+        _wait_for(lambda: router.directory.state(victim) == net.DOWN, "the victim DOWN",
+                  timeout=60.0)
+        down_states = router.directory.states()
+
+        # the victim restarts on a new port and rejoins by beacon
+        replicas[victim].serve()
+        old = router.clients[victim]
+        router.clients[victim] = connect(victim)
+        old.close()
+        t0 = time.perf_counter()
+        _wait_for(lambda: router.directory.state(victim) == net.UP, "the victim rejoining",
+                  timeout=60.0)
+        rejoin_s = time.perf_counter() - t0
+        if router.route("kill-0") != victim:
+            raise AssertionError("affinity did not return to the rejoined replica")
+        t0 = time.perf_counter()
+        rejoin = _fleet_round(router, users[:FLEET_REJOIN], "rejoin",
+                              creds=killed["creds"][:FLEET_REJOIN])
+        rejoin_round_s = time.perf_counter() - t0
+        on_victim = [i for i, r in enumerate(rejoin["replicas"]) if r == victim]
+        if not on_victim:
+            raise AssertionError("no session of the rejoin round landed on the victim")
+
+        # tenant isolation on the rejoined replica: the greedy tenant's
+        # third request is refused, the fleet tenant's beside it passes
+        i = on_victim[0]
+        m = users[i][0]
+        cred = rejoin["creds"][i]
+        greedy = connect(victim, GREEDY_KEY)
+        admitted = _resolve([greedy.submit_verify(cred, m) for _ in range(GREEDY_QUOTA)])
+        refused = greedy.submit_verify(cred, m).exception(GATEWAY_TIMEOUT_S)
+        fleet_direct = connect(victim)
+        beside = fleet_direct.submit_verify(cred, m).result(GATEWAY_TIMEOUT_S)
+        greedy.close()
+        fleet_direct.close()
+        if admitted != [True] * GREEDY_QUOTA or not isinstance(refused, TenantQuotaError) \
+                or beside is not True:
+            raise AssertionError("tenants: greedy %s then %r, fleet %s"
+                                 % (admitted, refused, beside))
+        fleet_counters = {k: v for k, v in sorted(metrics.snapshot()["counters"].items())
+                          if k.startswith(("gateway_", "issue_", "serve_watchdog"))
+                          or k.endswith("_batches")}
+        out["fleet"] = {
+            "replicas": len(rids), "batch": FLEET_BATCH, "wait_ms": FLEET_WAIT_MS,
+            "attrs": entry.MSG_COUNT, "hidden": entry.ISSUANCE_HIDDEN, "revealed": revealed,
+            "threshold": "3-of-5", "sessions": FLEET_SESSIONS, "reshows": FLEET_REJOIN,
+            "kill_round_s": kill_round_s, "rejoin_round_s": rejoin_round_s,
+            "hop_walls_s": {"kill": killed["walls"], "rejoin": rejoin["walls"]},
+            "sessions_per_s_kill_round": FLEET_SESSIONS / kill_round_s,
+            "reshows_per_s_rejoin_round": FLEET_REJOIN / rejoin_round_s,
+            "victim": victim, "mints_moved_to_survivor": moved,
+            "failover_settle_s": killed["settle_s"], "states_after_kill": down_states,
+            "rejoin_s": rejoin_s, "rejoin_sessions_on_victim": len(on_victim),
+            "quota_refusal": str(refused), "counters": fleet_counters,
+        }
+        log("gateway_fleet", **out["fleet"], launches_so_far=cuda_fp.LAUNCHES, card=card)
+
+        # 3) the state plane over the wire: a show the rejoined replica (the
+        # witness) accepted reaches the other by pull_state, the witness
+        # dies, the replay is refused
+        witness, other = victim, survivor
+        proof, chal, rv = rejoin["shows"][i]
+        digest = nullifier_of(proof, chal, None, fparams)
+        if not stores[witness].seen("nullifier/0", digest):
+            raise AssertionError("the witness did not journal the show it accepted")
+        t0 = time.perf_counter()
+        for rid in rids:
+            peers = {p: router.clients[p] for p in rids if p != rid}
+            pullers.append(StateReplicator(stores[rid], router.directory, peers,
+                                           interval_s=0.1).start())
+        _wait_for(lambda: stores[other].seen("nullifier/0", digest),
+                  "the nullifier replicated", timeout=60.0)
+        replicate_s = time.perf_counter() - t0
+        for p in pullers:
+            p.stop()
+        pullers = []
+        replicas[witness].close()  # no drain: the witness is gone
+        o = connect(other)
+        err = o.submit_show_verify(proof, rv, chal).exception(GATEWAY_TIMEOUT_S)
+        o.close()
+        if not isinstance(err, DoubleSpendError) or err.nullifier != digest:
+            raise AssertionError("the survivor answered the replay with %r" % (err,))
+        # the survivor reopened from its WAL refuses it too
+        replicas[other].close()
+        be_other = engines[other].backend
+        _drained(engines[other], "the survivor")
+        stores[other].close()
+        t0 = time.perf_counter()
+        stores[other] = StateStore(os.path.join(root, other), replica_id=other)
+        reopen_s = time.perf_counter() - t0
+        engines[other] = fleet_engine(stores[other], backend=be_other)
+        replicas[other] = net.Replica(engines[other], fcodec, tenants=tenants(), replica_id=other)
+        replicas[other].serve()
+        o = connect(other)
+        err2 = o.submit_show_verify(proof, rv, chal).exception(GATEWAY_TIMEOUT_S)
+        o.close()
+        if not isinstance(err2, DoubleSpendError) or err2.nullifier != digest:
+            raise AssertionError("the reopened survivor answered the replay with %r" % (err2,))
+        out["state"] = {
+            "witness": witness, "replicated_s": replicate_s, "nullifier": digest,
+            "replay_refused": type(err).__name__, "reopened_refused": type(err2).__name__,
+            "reopen_s": reopen_s, "records_after_reopen": len(stores[other].keys("nullifier/0")),
+            "state_pulls": metrics.get_count("gateway_state_pulls"),
+            "antientropy_pulls": metrics.get_count("state_antientropy_pulls"),
+            "records_applied": metrics.get_count("state_records_applied"),
+            "double_spends": metrics.get_count("nullifier_double_spends"),
+        }
+    finally:
+        for p in pullers:
+            p.stop()
+        if loop is not None:
+            loop.stop(timeout=5.0)
+        if router is not None:
+            router.close()
+        for r in replicas.values():
+            r.close()
+        for rid, eng in engines.items():
+            _drained(eng, "replica %s" % rid)
+        for st in stores.values():
+            st.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def gateway_phase(card, honest):
+    """The fleet gateway on the card: the verify service behind a replica
+    on a loopback socket at B = 1024 beside the same service direct; a
+    two-replica ProtocolEngine fleet behind a router with gossip and
+    tenant tables, one replica killed mid-run and rejoining; the state
+    plane over the wire and a replayed show refused after the witness
+    dies."""
+    started = time.perf_counter()
+    cuda_fp.LAUNCHES = 0
+    cuda_fp.PLAIN_CALLS = 0
+    verify = _gateway_verify(card, honest)
+    out = _gateway_fleet(card)
+    counters = metrics.snapshot()["counters"]
+    timeouts = counters.get("serve_watchdog_timeouts", 0) + counters.get(
+        "issue_watchdog_timeouts", 0)
+    launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    if launches == 0 or plain or timeouts:
+        raise AssertionError("gateway phase: %d launches, %d plain calls, %d watchdog timeouts"
+                             % (launches, plain, timeouts))
+    log("gateway", state=out["state"],
+        goodput_ratio_rpc_to_direct=verify["goodput_ratio_rpc_to_direct"],
+        decode_ms_per_request=verify["decode_ms_per_request"],
+        failover_settle_s=out["fleet"]["failover_settle_s"], launches=launches,
+        plain_calls=plain, seconds=time.perf_counter() - started, card=card)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
@@ -2342,29 +2783,44 @@ def main():
     log("build", seconds=build_s, library=str(lib.name),
         ptxas=kb.ptxas_report(cuda_fp.BUILD_LOG))
 
-    kern = kernel_phase(dev)
+    phase_s = {"start": time.perf_counter() - started}
+    last = [time.perf_counter()]
+
+    def timed(name, result):
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+        return result
+
+    kern = timed("kernel", kernel_phase(dev))
     by_path = {}
-    by_path["verify"], vbe, vhonest, vrate = main_path_phase(card)
-    by_path["show"], sbe, shonest, srate = show_path_phase(card)
-    by_path["verify_combined"], crate = verify_combined_phase(card, vbe, vhonest, vrate)
-    by_path["show_combined"], scrate = show_combined_phase(card, sbe, shonest, srate)
-    by_path["grouped"], grate = grouped_phase(card, vbe, vhonest, vrate)
-    by_path["g2_verify"], g2_creds = g2_verify_phase(
+    by_path["verify"], vbe, vhonest, vrate = timed("main_path", main_path_phase(card))
+    by_path["show"], sbe, shonest, srate = timed("show_path", show_path_phase(card))
+    by_path["verify_combined"], crate = timed(
+        "verify_combined", verify_combined_phase(card, vbe, vhonest, vrate))
+    by_path["show_combined"], scrate = timed(
+        "show_combined", show_combined_phase(card, sbe, shonest, srate))
+    by_path["grouped"], grate = timed("grouped", grouped_phase(card, vbe, vhonest, vrate))
+    by_path["g2_verify"], g2_creds = timed("g2_verify", g2_verify_phase(
         card, {"exact": vrate, "combined": crate, "grouped": grate}
-    )
-    by_path["prove"], prate = prove_phase(card, vhonest, srate)
-    by_path["show_g2"] = show_g2_phase(card, g2_creds, {"exact": srate, "combined": scrate})
-    ragged_phase(card, vhonest)
-    by_path["issue"], irates = issue_phase(card)
-    by_path["issue_g2"] = issue_g2_phase(card)
-    by_path["bucketed"] = bucketed_phase(card)
-    by_path["serve"] = serve_phase(card, vhonest, vrate)
-    by_path["issue_service"] = issue_service_phase(card, irates["issued_credentials_per_s"])
-    by_path["keylife_session"], issued, session = keylife_session_phase(card, dict(
-        irates, verify_per_s=vrate, proofs_per_s=prate, show_verify_per_s=srate))
-    by_path["ct_probe"] = ct_probe_phase(card, issued)
-    by_path["nullifier"] = nullifier_phase(card, session)
-    log("done", seconds=time.perf_counter() - started, card=card)
+    ))
+    by_path["prove"], prate = timed("prove", prove_phase(card, vhonest, srate))
+    by_path["show_g2"] = timed(
+        "show_g2", show_g2_phase(card, g2_creds, {"exact": srate, "combined": scrate}))
+    timed("ragged", ragged_phase(card, vhonest))
+    by_path["issue"], irates = timed("issue", issue_phase(card))
+    by_path["issue_g2"] = timed("issue_g2", issue_g2_phase(card))
+    by_path["bucketed"] = timed("bucketed", bucketed_phase(card))
+    by_path["serve"] = timed("serve", serve_phase(card, vhonest, vrate))
+    by_path["issue_service"] = timed(
+        "issue_service", issue_service_phase(card, irates["issued_credentials_per_s"]))
+    by_path["keylife_session"], issued, session = timed(
+        "keylife_session", keylife_session_phase(card, dict(
+            irates, verify_per_s=vrate, proofs_per_s=prate, show_verify_per_s=srate)))
+    by_path["ct_probe"] = timed("ct_probe", ct_probe_phase(card, issued))
+    by_path["nullifier"] = timed("nullifier", nullifier_phase(card, session))
+    by_path["gateway"] = timed("gateway", gateway_phase(card, vhonest))
+    log("done", seconds=time.perf_counter() - started, phase_seconds=phase_s, card=card)
     kern["launches"] = sum(by_path.values())
     kern["launches_by_path"] = by_path
     print(json.dumps({"kernels": [kern]}), flush=True)

@@ -37,7 +37,12 @@ layout and names and imports nothing from it:
            verify + issue workload (serve/loadgen.py), the checkpointed
            verify_stream, the retry / fault / dead-letter supervision,
            metrics and tracing; serve/loadgen.py also drives full
-           credential sessions (run_session_loadgen)
+           credential sessions (run_session_loadgen), directly or over
+           the wire (transport="rpc")
+  net/     the fleet gateway: the CTS-RPC/4 wire (byte for byte the JAX
+           package's), Replica / GatewayClient over a socket or a
+           loopback, tenant admission, health gossip and the
+           session-affine ReplicaRouter (host code)
 
 Entry points run on `cuda` unless the caller passes device="cpu".
 """

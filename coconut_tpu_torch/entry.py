@@ -37,6 +37,48 @@ def fixture(batch, msg_count=MSG_COUNT, seed=0xC0C0, ctx="G1"):
 
 
 def _credentials(rng, batch, msg_count, ctx=SIGNATURES_IN_G1):
+    params, sk, vk, sigs, msgs_list, _ = _credentials_and_logs(rng, batch, msg_count, ctx)
+    return params, sk, vk, sigs, msgs_list
+
+
+FIXED_BASE_MIN = 64  # from this many products on one base, its tables pay
+
+
+class _FixedBase:
+    """k * p for one point p and many k: tables of p * j * 256^i (j < 256,
+    i < 32), so a product is 32 additions instead of ~380 doublings and
+    additions. The points equal group.mul(p, k)'s."""
+
+    def __init__(self, group, p):
+        self.group = group
+        self.tables = []
+        base = group.to_jacobian(p)
+        for _ in range(32):  # 32 bytes cover r's 255 bits
+            row = [(group.one, group.one, group.zero), base]
+            for _ in range(254):
+                row.append(group.jadd(row[-1], base))
+            self.tables.append(row)
+            base = group.jadd(row[-1], base)
+
+    def mul(self, k):
+        k %= R
+        group = self.group
+        acc = (group.one, group.one, group.zero)
+        for row in self.tables:
+            acc = group.jadd(acc, row[k & 255])
+            k >>= 8
+        return group.to_affine(acc)
+
+
+def _base_mul(group, p, uses):
+    """A function k -> k * p, with tables when `uses` products pay for them."""
+    if uses >= FIXED_BASE_MIN:
+        return _FixedBase(group, p).mul
+    return functools.partial(group.mul, p)
+
+
+def _credentials_and_logs(rng, batch, msg_count, ctx):
+    """_credentials, and each sigma_1's discrete log over params.g."""
     g = ctx.sig.mul(ctx.sig_gen, rng.randrange(1, R))
     g_tilde = ctx.other.mul(ctx.other_gen, rng.randrange(1, R))
     h = [ctx.sig.mul(ctx.sig_gen, rng.randrange(1, R)) for _ in range(msg_count)]
@@ -48,15 +90,17 @@ def _credentials(rng, batch, msg_count, ctx=SIGNATURES_IN_G1):
         ctx.other.mul(g_tilde, sk.x),
         [ctx.other.mul(g_tilde, y) for y in sk.y],
     )
-    sigs, msgs_list = [], []
+    g_mul = _base_mul(ctx.sig, params.g, 2 * batch)
+    sigs, msgs_list, ts = [], [], []
     for _ in range(batch):
         msgs = [rng.randrange(R) for _ in range(msg_count)]
         t = rng.randrange(1, R)
-        s1 = ctx.sig.mul(params.g, t)
         expo = (sk.x + sum(y * m for y, m in zip(sk.y, msgs))) % R
-        sigs.append(Signature(s1, ctx.sig.mul(s1, expo)))
+        # sigma_2 = sigma_1 * expo, sigma_1 = g * t
+        sigs.append(Signature(g_mul(t), g_mul(t * expo)))
         msgs_list.append(msgs)
-    return params, sk, vk, sigs, msgs_list
+        ts.append(t)
+    return params, sk, vk, sigs, msgs_list, ts
 
 
 FORGERIES = ("tampered_sigma_2", "wrong_message", "identity_sigma_1")
@@ -98,25 +142,30 @@ def show_fixture(batch, revealed=SHOW_REVEALED, seed=0xC0C0):
     computed with the signing key as discrete logs of the bases: two G1 and
     two G2 scalar multiplications a proof."""
     rng = random.Random(seed)
-    params, sk, vk, sigs, msgs_list = _credentials(rng, batch, MSG_COUNT)
+    params, sk, vk, _, msgs_list, sigma_logs = _credentials_and_logs(
+        rng, batch, MSG_COUNT, SIGNATURES_IN_G1
+    )
     ctx = params.ctx
     revealed = sorted(set(revealed))
     hidden = [i for i in range(MSG_COUNT) if i not in revealed]
     logs = [1] + [sk.y[i] for i in hidden]  # the bases over g_tilde
+    g_mul = _base_mul(ctx.sig, params.g, 2 * batch)
+    g_tilde_mul = _base_mul(ctx.other, params.g_tilde, 2 * batch)
     proofs, revealed_msgs_list, challenges = [], [], []
-    for sig, msgs in zip(sigs, msgs_list):
+    for log_1, msgs in zip(sigma_logs, msgs_list):
         r = rng.randrange(1, R)
         t = rng.randrange(1, R)
         blindings = [rng.randrange(R) for _ in logs]
         c = rng.randrange(R)
         e = (sk.x + sum(y * m for y, m in zip(sk.y, msgs))) % R
-        s1 = ctx.sig.mul(sig.sigma_1, r)
+        # sigma'_1 = sigma_1 * r, sigma'_2 = sigma'_1 * (e + t), over g
+        log_s1 = log_1 * r % R
         secrets = [t] + [msgs[i] for i in hidden]
-        J = ctx.other.mul(params.g_tilde, sum(a * s for a, s in zip(logs, secrets)) % R)
-        T = ctx.other.mul(params.g_tilde, sum(a * b for a, b in zip(logs, blindings)) % R)
+        J = g_tilde_mul(sum(a * s for a, s in zip(logs, secrets)))
+        T = g_tilde_mul(sum(a * b for a, b in zip(logs, blindings)))
         responses = [(b - c * s) % R for b, s in zip(blindings, secrets)]
         proofs.append(PoKOfSignatureProof(
-            s1, ctx.sig.mul(s1, (e + t) % R), J, SchnorrProof(T, responses), revealed
+            g_mul(log_s1), g_mul(log_s1 * (e + t)), J, SchnorrProof(T, responses), revealed
         ))
         revealed_msgs_list.append({i: msgs[i] for i in revealed})
         challenges.append(c)

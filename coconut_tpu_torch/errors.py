@@ -5,13 +5,18 @@
 (`ServiceRetryableError` and its `ServiceOverloadedError`,
 `ServiceBrownoutError`, `QuorumUnreachableError`, `ServiceClosedError`),
 the key lifecycle's `ShareVerificationError`, `DkgAbortedError`,
-`EpochUnknownError` and `EpochRetiredError`, the stream checkpoint's
-`CheckpointCorruptError` / `CheckpointMismatchError`, and the nullifier
-guard's `DoubleSpendError` (whose message carries its fields, so
-`_restore_wire_fields` recovers them from the text alone)
-(`coconut_tpu/errors.py`), with the same names,
-messages, stable wire codes and `retry_after_s` contract, so a caller that
-catches refusals by class or by `code` treats both packages alike."""
+`EpochUnknownError` and `EpochRetiredError`, the gateway's tenant refusals
+(`TenantAuthError`, `TenantQuotaError`, `TenantRateLimitError`), the stream
+checkpoint's `CheckpointCorruptError` / `CheckpointMismatchError`, and the
+nullifier guard's `DoubleSpendError` (`coconut_tpu/errors.py`), with the
+same names, messages, stable wire codes and `retry_after_s` contract, so a
+caller that catches refusals by class or by `code` treats both packages
+alike.
+
+`WIRE_ERROR_CODES` is the 1:1 code <-> class map the error envelope of
+`net/wire.py` travels through, and `error_from_wire` rebuilds the typed
+exception an envelope names. Where a class's message carries its fields,
+`_restore_wire_fields` recovers them from the text alone."""
 
 import math
 import re
@@ -44,6 +49,12 @@ class UnsupportedNoOfMessages(CoconutError):
 
     code = "unsupported_messages"
 
+    # class-level defaults: error_from_wire rebuilds non-retryable errors
+    # via cls.__new__ + CoconutError.__init__, which never runs this
+    # subclass __init__ — attribute reads must still succeed
+    expected = None
+    given = None
+
     def __init__(self, expected, given):
         super().__init__(
             "Verkey valid for %d messages but given %d messages" % (expected, given)
@@ -51,11 +62,20 @@ class UnsupportedNoOfMessages(CoconutError):
         self.expected = expected
         self.given = given
 
+    def _restore_wire_fields(self, message):
+        m = re.search(r"valid for (\d+) messages but given (\d+)", message)
+        if m is not None:
+            self.expected = int(m.group(1))
+            self.given = int(m.group(2))
+
 
 class UnequalNoOfBasesExponents(CoconutError):
     """A Schnorr proof whose bases and exponents differ in number."""
 
     code = "unequal_bases_exponents"
+
+    bases = None
+    exponents = None
 
     def __init__(self, bases, exponents):
         super().__init__(
@@ -64,6 +84,12 @@ class UnequalNoOfBasesExponents(CoconutError):
         )
         self.bases = bases
         self.exponents = exponents
+
+    def _restore_wire_fields(self, message):
+        m = re.search(r"(\d+) bases and (\d+) exponents", message)
+        if m is not None:
+            self.bases = int(m.group(1))
+            self.exponents = int(m.group(2))
 
 
 class PSError(CoconutError):
@@ -112,6 +138,18 @@ class ServiceRetryableError(CoconutError):
         super().__init__(message)
         self.program = program
         self.retry_after_s = _finite_retry_after(retry_after_s)
+
+    @classmethod
+    def from_wire(cls, message, program=None, retry_after_s=0.0):
+        """Rebuild a retriable refusal from a decoded error envelope. The
+        subclass constructor is bypassed: an envelope carries only the
+        shared fields (message, program, retry_after_s), not the
+        structural detail such as queue depths."""
+        err = cls.__new__(cls)
+        ServiceRetryableError.__init__(
+            err, message, program=program, retry_after_s=retry_after_s
+        )
+        return err
 
 
 class ServiceOverloadedError(ServiceRetryableError):
@@ -274,6 +312,49 @@ class EpochRetiredError(CoconutError):
         self.live = tuple(sorted(live))
 
 
+class TenantAuthError(CoconutError):
+    """The gateway (net/) refused a request whose API key maps to no
+    provisioned tenant. Not retriable. Counted under
+    "gateway_auth_failures"."""
+
+    code = "tenant_auth"
+
+
+class TenantQuotaError(CoconutError):
+    """A tenant's absolute request quota is exhausted (net/tenant.py).
+    Not retriable within the quota epoch: there is no refill to wait for.
+    Counted under "gateway_tenant_<id>_quota_rejected"."""
+
+    code = "tenant_quota"
+
+    def __init__(self, tenant, used, quota):
+        super().__init__(
+            "tenant %r quota exhausted (%d/%d requests): raise the quota "
+            "or rotate the epoch" % (tenant, used, quota)
+        )
+        self.tenant = tenant
+        self.used = used
+        self.quota = quota
+
+
+class TenantRateLimitError(ServiceRetryableError):
+    """A tenant's token bucket is empty (net/tenant.py): the request was
+    refused before engine admission. Retriable: `retry_after_s` is the
+    bucket's refill horizon for one token. Counted under
+    "gateway_tenant_<id>_throttled"."""
+
+    code = "tenant_rate_limited"
+
+    def __init__(self, tenant, retry_after_s, program=None):
+        super().__init__(
+            "tenant %r rate-limited: token bucket empty — retry after "
+            "~%.3gs" % (tenant, _finite_retry_after(retry_after_s)),
+            program=program,
+            retry_after_s=retry_after_s,
+        )
+        self.tenant = tenant
+
+
 class CheckpointCorruptError(CoconutError):
     """A stream checkpoint failed integrity validation (truncated or
     unparseable bytes, an unknown schema, a CRC mismatch).
@@ -346,3 +427,56 @@ class DoubleSpendError(CoconutError):
             self.nullifier = m.group(1)
             self.epoch = None if m.group(2) is None else int(m.group(2))
             self.domain = m.group(3)
+
+
+#: the 1:1 code <-> class map the wire error envelope encodes and decodes
+#: through (net/wire.py), in the JAX package's order. Retriable codes
+#: rebuild via `from_wire` (shared fields only); the rest with their
+#: message.
+WIRE_ERROR_CODES = {
+    cls.code: cls
+    for cls in (
+        GeneralError,
+        DeserializationError,
+        UnsupportedNoOfMessages,
+        UnequalNoOfBasesExponents,
+        PSError,
+        TransientBackendError,
+        ServiceRetryableError,
+        ServiceOverloadedError,
+        ServiceBrownoutError,
+        QuorumUnreachableError,
+        ServiceClosedError,
+        TenantAuthError,
+        TenantQuotaError,
+        TenantRateLimitError,
+        ShareVerificationError,
+        DkgAbortedError,
+        EpochUnknownError,
+        EpochRetiredError,
+        DoubleSpendError,
+    )
+}
+
+
+def error_from_wire(code, message, program=None, retry_after_s=0.0):
+    """Rebuild the typed exception a wire error envelope describes.
+    Unknown codes degrade to GeneralError (a newer server may emit codes
+    this client predates) with the code kept as an instance attribute."""
+    cls = WIRE_ERROR_CODES.get(code)
+    if cls is None:
+        err = GeneralError(message)
+        err.code = code
+        return err
+    if issubclass(cls, ServiceRetryableError):
+        return cls.from_wire(
+            message, program=program, retry_after_s=retry_after_s
+        )
+    err = cls.__new__(cls)
+    CoconutError.__init__(err, message)
+    if program is not None:
+        err.program = program
+    restore = getattr(err, "_restore_wire_fields", None)
+    if restore is not None:
+        restore(message)
+    return err

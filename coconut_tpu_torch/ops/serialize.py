@@ -13,12 +13,24 @@ the JAX package's own objects give the same bytes. The decoders the request
 proof's `from_bytes` needs (Fr, Fp, Fp2 and uncompressed G1 / G2 points)
 validate as the reference's do: field elements below their modulus, points
 on the curve and in the r-torsion subgroup; every refusal raises
-`DeserializationError`. The compressed encodings wait for `net/`.
+`DeserializationError`. Compressed points (48 / 96 bytes, ZCash-style
+flag bits in the top three bits of the first byte: compr | infinity |
+y-sign) decode with the same checks.
 """
 
 from ..errors import DeserializationError
 from .curve import g1, g2
-from .fields import P, R
+from .fields import (
+    P,
+    R,
+    fp2_add,
+    fp2_mul,
+    fp2_sgn0,
+    fp2_sq,
+    fp2_sqrt,
+    fp_sgn0,
+    fp_sqrt,
+)
 
 
 def fr_to_bytes(a):
@@ -74,6 +86,39 @@ def g1_from_bytes(b):
     return p
 
 
+def g1_to_compressed(p):
+    if p is None:
+        return bytes([0xC0]) + b"\x00" * 47
+    flags = 0x80 | (0x20 if fp_sgn0(p[1]) else 0)
+    raw = bytearray(fp_to_bytes(p[0]))
+    raw[0] |= flags
+    return bytes(raw)
+
+
+def g1_from_compressed(b):
+    if len(b) != 48:
+        raise DeserializationError("compressed G1 must be 48 bytes")
+    flags = b[0] & 0xE0
+    if not flags & 0x80:
+        raise DeserializationError("compression flag not set")
+    if flags & 0x40:
+        if b != bytes([0xC0]) + b"\x00" * 47:
+            raise DeserializationError("malformed G1 identity encoding")
+        return None
+    raw = bytearray(b)
+    raw[0] &= 0x1F
+    x = fp_from_bytes(bytes(raw))
+    y = fp_sqrt((x * x % P * x + 4) % P)
+    if y is None:
+        raise DeserializationError("x not on curve")
+    if fp_sgn0(y) != (1 if flags & 0x20 else 0):
+        y = P - y
+    p = (x, y)
+    if not g1.in_subgroup(p):
+        raise DeserializationError("G1 point not in the r-torsion subgroup")
+    return p
+
+
 def g2_to_bytes(p):
     if p is None:
         return b"\x00" * 192
@@ -86,6 +131,39 @@ def g2_from_bytes(b):
     if b == b"\x00" * 192:
         return None
     p = (fp2_from_bytes(b[:96]), fp2_from_bytes(b[96:]))
+    if not g2.in_subgroup(p):
+        raise DeserializationError("G2 point not in the r-torsion subgroup")
+    return p
+
+
+def g2_to_compressed(p):
+    if p is None:
+        return bytes([0xC0]) + b"\x00" * 95
+    flags = 0x80 | (0x20 if fp2_sgn0(p[1]) else 0)
+    raw = bytearray(fp2_to_bytes(p[0]))
+    raw[0] |= flags
+    return bytes(raw)
+
+
+def g2_from_compressed(b):
+    if len(b) != 96:
+        raise DeserializationError("compressed G2 must be 96 bytes")
+    flags = b[0] & 0xE0
+    if not flags & 0x80:
+        raise DeserializationError("compression flag not set")
+    if flags & 0x40:
+        if b != bytes([0xC0]) + b"\x00" * 95:
+            raise DeserializationError("malformed G2 identity encoding")
+        return None
+    raw = bytearray(b)
+    raw[0] &= 0x1F
+    x = fp2_from_bytes(bytes(raw))
+    y = fp2_sqrt(fp2_add(fp2_mul(fp2_sq(x), x), (4, 4)))
+    if y is None:
+        raise DeserializationError("x not on curve")
+    if fp2_sgn0(y) != (1 if flags & 0x20 else 0):
+        y = ((P - y[0]) % P, (P - y[1]) % P)
+    p = (x, y)
     if not g2.in_subgroup(p):
         raise DeserializationError("G2 point not in the r-torsion subgroup")
     return p

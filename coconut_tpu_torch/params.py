@@ -9,10 +9,11 @@ vk.X_tilde, vk.Y_tilde, params.g, params.g_tilde, params.ctx.name, and a
 proof's sigma_prime_1, sigma_prime_2, J, proof_vc.t, proof_vc.responses,
 revealed_msg_indices), so any objects with those attributes work, the JAX
 package's own included. A context decodes single points
-(`sig_from_bytes` / `other_from_bytes`, for the request proof); the
-holders' own `from_bytes` wait for `net/`.
+(`sig_from_bytes` / `other_from_bytes`), and `Params.to_bytes` /
+`from_bytes` encode the setup as g || g_tilde || h_1 || ...
 """
 
+from .errors import DeserializationError
 from .ops import pairing as _pairing
 from .ops import serialize as ser
 from .ops.curve import G1_GEN, G2_GEN, g1, g2
@@ -82,3 +83,30 @@ class Params:
 
     def msg_count(self):
         return len(self.h)
+
+    def to_bytes(self):
+        out = [self.ctx.sig_to_bytes(self.g), self.ctx.other_to_bytes(self.g_tilde)]
+        out.extend(self.ctx.sig_to_bytes(hi) for hi in self.h)
+        return b"".join(out)
+
+    @classmethod
+    def from_bytes(cls, b, ctx=DEFAULT_CTX):
+        head = ctx.sig_nbytes + ctx.other_nbytes
+        if len(b) < head or (len(b) - head) % ctx.sig_nbytes:
+            raise DeserializationError("malformed Params encoding")
+        g = ctx.sig_from_bytes(b[: ctx.sig_nbytes])
+        g_tilde = ctx.other_from_bytes(b[ctx.sig_nbytes : head])
+        h = [
+            ctx.sig_from_bytes(b[o : o + ctx.sig_nbytes])
+            for o in range(head, len(b), ctx.sig_nbytes)
+        ]
+        return cls(g, g_tilde, h, ctx)
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, Params)
+            and self.g == other.g
+            and self.g_tilde == other.g_tilde
+            and self.h == other.h
+            and self.ctx.name == other.ctx.name
+        )

@@ -32,16 +32,18 @@ host spec path is asked for by name, `backend="spec"`, or a SpecBackend.
 The refusals the reference raises as `PSError` (batch-size mismatches, an
 unknown mode, revealed messages that do not match a proof, batched mode
 on the spec path) raise the port's `errors.PSError`, of the same name and
-code. Decoding a proof (`from_bytes`) is not part of the port yet.
+code. `PoKOfSignatureProof.from_bytes` decodes a proof as strictly as the
+reference: its length, canonical field elements, points in the subgroup,
+no duplicate revealed index.
 """
 
 import collections
 
 from .backend import SpecBackend, get_backend
-from .errors import PSError, UnsupportedNoOfMessages
+from .errors import DeserializationError, PSError, UnsupportedNoOfMessages
 from .gpu.backend import TorchBackend
 from .ops import serialize as ser
-from .pok_vc import ProverCommitting
+from .pok_vc import Proof, ProverCommitting
 from .signature import fiat_shamir_challenge
 from .sss import rand_fr
 
@@ -331,6 +333,28 @@ class PoKOfSignatureProof:
     def to_bytes(self, ctx):
         """Canonical wire encoding (prover -> verifier)."""
         return ser.show_proof_to_bytes(self, ctx)
+
+    @classmethod
+    def from_bytes(cls, b, ctx):
+        n = ctx.sig_nbytes
+        if len(b) < 2 * n + ctx.other_nbytes:
+            raise DeserializationError("malformed PoKOfSignatureProof")
+        s1 = ctx.sig_from_bytes(b[:n])
+        s2 = ctx.sig_from_bytes(b[n : 2 * n])
+        o = 2 * n
+        J = ctx.other_from_bytes(b[o : o + ctx.other_nbytes])
+        o += ctx.other_nbytes
+        proof_vc, o = Proof.read_from(b, o, ctx.other_from_bytes, ctx.other_nbytes)
+        if len(b) < o + 4:
+            raise DeserializationError("malformed PoKOfSignatureProof")
+        k = int.from_bytes(b[o : o + 4], "big")
+        o += 4
+        if len(b) != o + 4 * k:
+            raise DeserializationError("malformed PoKOfSignatureProof")
+        revealed = {int.from_bytes(b[o + 4 * i : o + 4 * (i + 1)], "big") for i in range(k)}
+        if len(revealed) != k:
+            raise DeserializationError("duplicate revealed indices")
+        return cls(s1, s2, J, proof_vc, revealed)
 
     def to_bytes_for_challenge(self, vk, params):
         """The prover's transcript bytes, so a Fiat-Shamir verifier

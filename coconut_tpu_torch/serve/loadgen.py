@@ -54,9 +54,12 @@ ProtocolEngine, reporting session latency percentiles beside per-program
 goodput. Unlike the reference, each show is verified under its
 credential's mint epoch, so sessions stay valid across key rollovers.
 
-RPC TRANSPORT (`transport="rpc"`, a fleet gateway client in place of the
-engine) raises ValueError until the gateway (net/) is ported; the reports
-keep `rpc_overhead_s`, None on the direct transport.
+RPC TRANSPORT (`transport="rpc"`): `service` / `engine` is a fleet
+gateway client (net.GatewayClient or net.ReplicaRouter) in place of the
+engine; each session gets a stable session id (routed with affinity
+through a router's `bound(session)`), and the reports give
+`rpc_overhead_s`, the mean client-observed latency minus the engine-side
+mean (None on the direct transport).
 
 AVAILABILITY: every verify report embeds an "availability"
 section — a per-second goodput/error timeline, `error_free_seconds`,
@@ -86,13 +89,6 @@ from ..errors import (
     TransientBackendError,
 )
 from ..obs import trace as otrace
-
-
-def _refuse_rpc():
-    raise ValueError(
-        "transport='rpc' drives a fleet gateway client (net/), which is "
-        "not ported to the PyTorch package yet: use transport='direct'"
-    )
 
 
 def _stage_totals():
@@ -353,16 +349,15 @@ def run_loadgen(
     the report gains an "issue" section. issue_fraction=1.0 drives a
     pure-issuance run (the bench --issue lane).
 
-    transport: "direct" (service IS the engine); "rpc" (a gateway client)
-    raises ValueError until net/ is ported."""
+    transport: "direct" (service IS the engine) or "rpc" (service is a
+    net.GatewayClient / net.ReplicaRouter; the report adds
+    `rpc_overhead_s` when the replica engines share this process)."""
     if not pool:
         raise ValueError("loadgen pool must be non-empty")
     if arrival not in ("closed", "open"):
         raise ValueError("unknown arrival discipline %r" % (arrival,))
     if transport not in ("direct", "rpc"):
         raise ValueError("unknown transport %r" % (transport,))
-    if transport == "rpc":
-        _refuse_rpc()
     if not 0.0 <= issue_fraction <= 1.0:
         raise ValueError(
             "issue_fraction must be in [0, 1] (got %r)" % (issue_fraction,)
@@ -557,14 +552,11 @@ def run_session_loadgen(
     a stable session id — routed with consistent-hash affinity when the
     target is a router (its `bound(session)` seam) — and the report adds
     `rpc_overhead_s` (mean client-observed phase latency minus the
-    engine-side mean, when the replica engines share this process); it
-    raises ValueError in the port until the gateway (net/) is ported."""
+    engine-side mean, when the replica engines share this process)."""
     if not pool:
         raise ValueError("session loadgen pool must be non-empty")
     if transport not in ("direct", "rpc"):
         raise ValueError("unknown transport %r" % (transport,))
-    if transport == "rpc":
-        _refuse_rpc()
     rng = rng if rng is not None else random.Random(0x5E5510)
     lock = threading.Lock()
     session_lat = []
@@ -587,7 +579,13 @@ def run_session_loadgen(
         t_start = clock()
         with lock:
             counts["started"] += 1
-        eng = engine
+            session_no = counts["started"]
+        if transport == "rpc" and hasattr(engine, "bound"):
+            # a router pins the whole prepare->mint->show flow to the
+            # session's ring-primary replica (consistent-hash affinity)
+            eng = engine.bound("sess-%d" % session_no)
+        else:
+            eng = engine
         phase = SESSION_PHASES[0]
         try:
             t_p = clock()

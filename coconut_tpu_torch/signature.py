@@ -145,6 +145,14 @@ class Verkey:
     def to_bytes(self, ctx):
         return ser.verkey_to_bytes(self, ctx)
 
+    @classmethod
+    def from_bytes(cls, b, ctx):
+        n = ctx.other_nbytes
+        if len(b) < 2 * n or len(b) % n:
+            raise DeserializationError("malformed Verkey encoding")
+        parts = [ctx.other_from_bytes(b[o : o + n]) for o in range(0, len(b), n)]
+        return cls(parts[0], parts[1:])
+
     def __eq__(self, other):
         return (
             isinstance(other, Verkey)
@@ -183,6 +191,13 @@ class Signature:
 
     def to_bytes(self, ctx):
         return ser.signature_to_bytes(self, ctx)
+
+    @classmethod
+    def from_bytes(cls, b, ctx):
+        n = ctx.sig_nbytes
+        if len(b) != 2 * n:
+            raise DeserializationError("malformed Signature encoding")
+        return cls(ctx.sig_from_bytes(b[:n]), ctx.sig_from_bytes(b[n:]))
 
     def __eq__(self, other):
         return (
@@ -261,6 +276,28 @@ class SignatureRequest:
             out.append(ctx.sig_to_bytes(c1))
             out.append(ctx.sig_to_bytes(c2))
         return b"".join(out)
+
+    @classmethod
+    def from_bytes(cls, b, ctx):
+        if len(b) < 8:
+            raise DeserializationError("malformed SignatureRequest encoding")
+        n_known = int.from_bytes(b[:4], "big")
+        n_ct = int.from_bytes(b[4:8], "big")
+        n = ctx.sig_nbytes
+        if len(b) != 8 + 32 * n_known + n + 2 * n * n_ct:
+            raise DeserializationError("malformed SignatureRequest encoding")
+        o = 8
+        known = []
+        for _ in range(n_known):
+            known.append(ser.fr_from_bytes(b[o : o + 32]))
+            o += 32
+        commitment = ctx.sig_from_bytes(b[o : o + n])
+        o += n
+        cts = []
+        for _ in range(n_ct):
+            cts.append((ctx.sig_from_bytes(b[o : o + n]), ctx.sig_from_bytes(b[o + n : o + 2 * n])))
+            o += 2 * n
+        return cls(known, commitment, cts)
 
 
 def _statement_bytes(sig_req, elgamal_pk, ctx):
@@ -469,6 +506,16 @@ class BlindSignature:
             ctx.sig_to_bytes(self.h)
             + ctx.sig_to_bytes(self.blinded[0])
             + ctx.sig_to_bytes(self.blinded[1])
+        )
+
+    @classmethod
+    def from_bytes(cls, b, ctx):
+        n = ctx.sig_nbytes
+        if len(b) != 3 * n:
+            raise DeserializationError("malformed BlindSignature encoding")
+        return cls(
+            ctx.sig_from_bytes(b[:n]),
+            (ctx.sig_from_bytes(b[n : 2 * n]), ctx.sig_from_bytes(b[2 * n :])),
         )
 
 

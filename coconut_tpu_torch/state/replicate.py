@@ -21,9 +21,12 @@ from A, C can pull it from B after A dies.
 Conflict resolution is the store's LWW by (epoch, apply-index,
 origin); the replicator never interprets values.
 
-`clients` and `directory` are duck-typed here. The wire half of the
-reference (beacons carrying the marks, MSG_STATE_PULL served by a
-replica) belongs to its `net/` package.
+Over the wire (net/): every beacon carries its replica's
+`StateStore.marks()`, the gossip HealthDirectory keeps the latest marks
+a replica (`state_marks(rid)`), `GatewayClient.pull_state` sends the
+MSG_STATE_PULL, and a Replica answers it with a MSG_STATE_CHUNK from
+its engine's store, also while it drains. `clients` and `directory` are
+duck-typed, so tests may hand in any object with those methods.
 
 Fault seam: `faults.ReplicationChaos.drop(peer, keyspace)` swallows
 pulls to model a partitioned anti-entropy path; dropped pulls retry on
@@ -40,9 +43,9 @@ class StateReplicator:
 
     `clients` maps replica id -> an object with
     `pull_state(keyspace, origin, after_seq, limit)` returning an
-    iterable of record dicts (the reference's GatewayClient, or any
-    object with that method). `directory` is anything with
-    `state_marks(rid)` (the reference's gossip HealthDirectory)."""
+    iterable of record dicts (net.GatewayClient, or any object with that
+    method). `directory` is a net.HealthDirectory (or anything with
+    `state_marks(rid)`)."""
 
     def __init__(
         self,

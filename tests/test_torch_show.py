@@ -280,3 +280,33 @@ def test_jax_backend_batch_show_verify_matches_port(mixed, port_backend):
     args = (proofs[:n], vk, params, rmsgs[:n], challenges[:n])
     jax_bits = JaxBackend().batch_show_verify(*args)
     assert port_backend.batch_show_verify(*args) == [bool(b) for b in jax_bits] == expect[:n]
+
+
+@pytest.mark.parametrize("ctx", ["G1", "G2"])
+def test_fixture_fixed_base_tables_give_the_plain_products(monkeypatch, ctx):
+    """entry's fixed-base tables (used from FIXED_BASE_MIN products on one
+    base) give the points of the plain scalar multiplication, for scalars
+    at and past the byte and group-order edges, and the fixtures made with
+    them equal those made without."""
+    from coconut_tpu_torch.ops.curve import G1_GEN as PG1, G2_GEN as PG2, g1 as pg1, g2 as pg2
+
+    group, gen = (pg1, PG1) if ctx == "G1" else (pg2, PG2)
+    table = entry._FixedBase(group, gen)
+    rng = random.Random(0xF1B)
+    for k in (0, 1, 255, 256, 1 << 248, R - 1, R, R + 5, rng.randrange(R), rng.randrange(R * R)):
+        assert table.mul(k) == group.mul(gen, k % R)
+
+    def points(fix):
+        _, _, vk, sigs, _ = fix
+        return vk.X_tilde, vk.Y_tilde, [(s.sigma_1, s.sigma_2) for s in sigs]
+
+    def shows(fix):
+        return [(p.sigma_prime_1, p.sigma_prime_2, p.J, p.proof_vc.t, p.proof_vc.responses)
+                for p in fix[3]] + [fix[5]]
+
+    plain = points(entry.fixture(3, msg_count=2, ctx=ctx))
+    plain_shows = shows(entry.show_fixture(2)) if ctx == "G1" else None
+    monkeypatch.setattr(entry, "FIXED_BASE_MIN", 1)
+    assert points(entry.fixture(3, msg_count=2, ctx=ctx)) == plain
+    if ctx == "G1":
+        assert shows(entry.show_fixture(2)) == plain_shows
