@@ -102,8 +102,8 @@ Phases, one line each (plus the kernel table and the result line):
  16. serve: the online verify service and the checkpointed stream over a
      fresh TorchBackend, on phase 4's credentials (one lane in 8 forged):
      per_credential — CredentialService(max_batch=1024, max_wait_ms=50)
-     answers phase 4's batch once cold, then 4,096 requests (the batch
-     four times, shuffled, bulk lane) queued before start: every verdict
+     answers phase 4's batch once cold, then 2,048 requests (the batch
+     twice, shuffled, bulk lane) queued before start: every verdict
      the expected one, no watchdog timeout, every executor HEALTHY;
      served verifies/s beside phase 4's batch_verify rate and p50/p99 of
      serve_latency_s; grouped — an honest batch all True from ONE grouped
@@ -113,10 +113,10 @@ Phases, one line each (plus the kernel table and the result line):
      FaultyBackend(raise_on={0}) under RetryPolicy(max_attempts=2,
      base_delay=0): exact bits, retries 1; lone request — one interactive
      request on an idle service with pad_partial True and False, median
-     of 3 each; stream — verify_stream over 4 batches with a checkpoint,
-     pipeline_depth 1 and 2 (tallies 3,584 / 512 exact), and a run
-     stopped after 2 batches resumed to the same tallies; pool — served
-     verifies/s of half the backlog with one executor against two on the
+     of 3 each; stream — verify_stream over 2 batches with a checkpoint,
+     pipeline_depth 1 and 2 (tallies 1,792 / 256 exact), and a run
+     stopped after 1 batch resumed to the same tallies; pool — served
+     verifies/s of two batches with one executor against two on the
      same card.
  17. issue_service: the threshold-issuance service (BASELINE config 4,
      G1, 1,024 users with an ElGamal key pair each, 3-of-5): requests from
@@ -233,6 +233,41 @@ Phases, one line each (plus the kernel table and the result line):
      the envelope), and again by the survivor reopened from its WAL.
      Gates: every show True, 0 dangling futures, no
      watchdog timeout, launches and no plain call.
+ 22. scenarios: the replica lifecycle, elastic pool sizing and the
+     application scenarios. The day: ProtocolEngine(backend="torch",
+     devices=2: two executors on the one card, max_batch 1024, 50 ms,
+     partial batches not padded, a StateStore whose nullifier guard
+     probes on cuda, a 60 s watchdog floor), config 4 keys (3-of-5, 6
+     attributes, 2 hidden, {2, 3, 4, 5} revealed), one warm-up session
+     outside the day, an ElasticController(ElasticPolicy(
+     min_executors=1, grow_after=2, shrink_after=3)), and a
+     PopulationDriver over Population(65,536, 8 tenants, seed 0x19, zipf
+     1.2) running petitions (weight 2, 4 campaigns, re-sign 0.15), e-cash
+     (weight 2, double spend 0.15) and access (weight 1, 2-3 shows) over a
+     40 s DiurnalCurve from trough to trough, peak half of
+     keylife_session's sessions/s and base a quarter of that, with a x2
+     FlashCrowd at mid-day for 12 % of the day (5 % ramps); 1,024 in
+     flight, SLO 10 s, a 60 s drain, the scenarios' own deadlines (30 s,
+     60 s for access) and the driver's seed 0x19, as the reference's lane.
+     Beside the day, once its runs have ended: an e-cash user who always
+     re-spends, and an idle stretch then two prepare batches a tick of
+     the ElasticController. Gates: 0 failed, 0 cancelled, some
+     completed, every rejection of the day labelled double_spend and the
+     planted re-spend refused as double_spend, the planted stretch parks
+     an executor (unless the day left one parked) and unparks it,
+     started == the terminal sum, 16 accepted shows True on the host spec.
+     Prints the goodput of the peak half and of the opening trough, the
+     flash p99, parks and unparks, the busy fractions the policy saw and
+     each hop's batches. The restart: a verify ProtocolEngine on the main
+     path's backend behind a Replica with a LifecycleController, the main
+     path's 1,024 credentials (one in 8 forged) once, then twice in
+     flight while the replica drains (0 dropped, the expected verdicts,
+     up -> draining -> closed, the manifest saved); a successor in a fresh
+     python3 process runs configure_compilation_cache(), boots from the
+     manifest (beacon warming -> healthy, lifecycle_warm_skipped = the
+     manifest's shapes) and verifies the same batch: its verdicts equal
+     the predecessor's. Prints the spawn-to-first-verdict wall and its
+     parts.
 
 Each path's first call runs with the kernel's counts set to 0 just before
 it and read just after; the kernel table's `launches` is their sum, and
@@ -240,8 +275,9 @@ it and read just after; the kernel table's `launches` is their sum, and
 prove: the prover's and its two FS verifies'; show_g2: the prover's and
 its two verifies'; issue: the round's four stages'; issue_g2: the same;
 bucketed: its three MSMs'; serve, issue_service, keylife_session,
-ct_probe, nullifier and gateway: every run of the phase, counted from its
-start to its end, with no plain call allowed).
+ct_probe, nullifier, gateway and scenarios: every run of the phase,
+counted from its start to its end, with no plain call allowed; scenarios
+adds the successor process's launches).
 
 Any failed check raises (non-zero exit). After the phases, a `done` line
 gives the script's seconds since start and each phase's; then the kernel table, and last
@@ -255,6 +291,7 @@ import hashlib
 import itertools
 import json
 import os
+import pickle
 import random
 import secrets
 import shutil
@@ -1087,7 +1124,7 @@ def bucketed_phase(card):
 
 
 SERVE_WAIT_MS = 50
-SERVE_COPIES = 4  # the serve phase's backlog: phase 4's batch four times
+SERVE_COPIES = 2  # the serve phase's backlog: phase 4's batch twice (cut from four times)
 
 
 class _Stop(Exception):
@@ -1243,8 +1280,8 @@ def serve_phase(card, honest, exact_rate):
             "pad_lanes": metrics.get_count("serve_pad_lanes"),
         }
 
-    # stream: 4 batches with a checkpoint at depths 1 and 2, then a stop
-    # after 2 batches and a resume
+    # stream: SERVE_COPIES batches with a checkpoint at depths 1 and 2, then a
+    # stop after half of them and a resume
     tallies = (SERVE_COPIES * expect.count(True), SERVE_COPIES * expect.count(False))
     source = lambda i: (fsigs, fmsgs)
     out["stream"] = {"batches": SERVE_COPIES, "tallies": tallies}
@@ -1283,9 +1320,9 @@ def serve_phase(card, honest, exact_rate):
             raise AssertionError("resume from %d gave %s" % (stopped_at, vars(st)))
         out["stream"]["resumed_from"] = stopped_at
 
-    # the pool: one executor against two on the same card, on half the
-    # backlog (two batches)
-    half = len(backlog) // 2
+    # the pool: one executor against two on the same card, on two batches
+    # of the backlog
+    half = 2 * BATCH
     out["pool"] = {"requests": half}
     for n in (1, 2):
         metrics.reset()
@@ -1893,10 +1930,10 @@ def keylife_session_phase(card, bare):
         live_epochs=mgr.registry.live_epochs(), launches=launches, plain_calls=plain,
         seconds=time.perf_counter() - started, card=card,
     )
-    return launches, (params, prepared), (params, prepared, mgr, users)
+    return launches, (params, prepared), (params, prepared, mgr, users), load["sessions_per_s"]
 
 
-CT_REPS = 5
+CT_REPS = 5  # cut from 7
 # every signed 5-bit digit at its largest magnitude (probes/probe_ct.py)
 _DENSE = sum(16 * (32**i) for i in range(51)) % R
 CT_PATTERNS = {
@@ -2764,6 +2801,384 @@ def gateway_phase(card, honest):
     return launches
 
 
+SCN_DAY_S = 40.0  # the diurnal day, trough to trough
+SCN_USERS = 65536  # the lazy population: a user costs nothing until it arrives
+SCN_IN_FLIGHT = 1024
+SCN_SLO_S = 10.0
+SCN_DRAIN_S = 60.0
+SCN_SPEC_SHOWS = 16  # accepted shows held against the host spec
+SCN_SEED = 0x19  # the population's and the driver's, as the reference's lane
+
+_SUCCESSOR = """
+import glob, json, os, pickle, sys, time
+t_spawned = time.time()
+root = sys.argv[1]
+from coconut_tpu_torch import metrics
+from coconut_tpu_torch.engine import ProtocolEngine
+from coconut_tpu_torch.engine.lifecycle import LifecycleController, configure_compilation_cache
+from coconut_tpu_torch.gpu import cuda_fp
+from coconut_tpu_torch.net.rpc import Replica
+from coconut_tpu_torch.net.wire import WireCodec
+from coconut_tpu_torch.serve.health import Watchdog
+t_imported = time.time()
+with open(os.path.join(root, "fixture.pkl"), "rb") as fh:
+    signers, params, vk, sigs, msgs = pickle.load(fh)
+lib_there = bool(glob.glob(str(cuda_fp.BUILD_DIR / "libcoconut_fp_mul-*.so")))
+t0 = time.time()
+cache_ok = configure_compilation_cache()
+t_cache = time.time() - t0
+eng = ProtocolEngine(signers, params, 3, count_hidden=2, revealed_msg_indices=[2, 3, 4, 5], vk=vk,
+                     backend="torch", devices=1, max_batch=len(sigs), max_wait_ms=50.0,
+                     watchdog=Watchdog(min_timeout_s=60.0))
+lc = LifecycleController(eng, manifest_path=os.path.join(root, "shapes.json"))
+rep = Replica(eng, WireCodec(params), replica_id="roll-1", lifecycle=lc)
+beacons = [rep.beacon().state]
+boot = lc.boot()
+beacons.append(rep.beacon().state)
+eng.start()
+t0 = time.time()
+bits = [f.result(900.0) for f in [eng.submit_verify(s, m) for s, m in zip(sigs, msgs)]]
+t_first = time.time()
+first_s = t_first - t0
+ok = eng.drain(timeout=300.0)
+print(json.dumps({
+    "t_spawned": t_spawned, "import_s": t_imported - t_spawned, "cache_ok": cache_ok,
+    "cache_s": t_cache, "nvcc_ran": not lib_there, "boot": list(boot), "beacons": beacons,
+    "lifecycle": [lc.state], "bits": bits, "first_batch_s": first_s, "t_first_verdict": t_first,
+    "drained": ok, "device": str(eng.backend.device), "launches": cuda_fp.LAUNCHES,
+    "plain_calls": cuda_fp.PLAIN_CALLS,
+    "counters": {k: v for k, v in metrics.snapshot()["counters"].items() if k.startswith("lifecycle_")},
+}), flush=True)
+"""
+
+
+def _guard_on_card(guard):
+    if guard.device.type != "cuda":
+        raise AssertionError("the nullifier guard probes on %s" % guard.device)
+
+
+def _application_day(card, session_rate):
+    """The reference's application lane at config 4 widths on the card: a
+    ProtocolEngine over TorchBackend with a StateStore and two executors,
+    an ElasticController sizing its pool, and the petition / e-cash /
+    access mix over a diurnal day with a flash crowd."""
+    from coconut_tpu_torch.elgamal import elgamal_keygen
+    from coconut_tpu_torch.engine import ElasticController, ElasticPolicy, ProtocolEngine
+    from coconut_tpu_torch.scenarios import (
+        TERMINAL_OUTCOMES, AccessScenario, DiurnalCurve, EcashScenario, FlashCrowd,
+        PetitionScenario, Population, PopulationDriver, RateSchedule, ScenarioReport,
+    )
+    from coconut_tpu_torch.state import StateStore
+
+    params, signers, _, _, _ = entry.issue_fixture(1)
+    revealed = list(entry.SHOW_REVEALED)
+    root = tempfile.mkdtemp(prefix="chip-scenarios-")
+    store = StateStore(root, replica_id="chip-scn")
+    eng = ProtocolEngine(
+        signers, params, entry.ISSUANCE_THRESHOLD, count_hidden=entry.ISSUANCE_HIDDEN,
+        revealed_msg_indices=revealed, backend="torch", devices=2, max_batch=BATCH,
+        max_wait_ms=SERVE_WAIT_MS, pad_partial=False, state_store=store,
+        watchdog=Watchdog(min_timeout_s=SESSION_WATCHDOG_FLOOR_S),
+    )
+    _on_card(eng.backend, "backend='torch'")
+    _guard_on_card(eng.nullifiers)
+    accepted = []
+    inner_showv = eng.submit_show_verify
+
+    def show_verify(proof, revealed_msgs, challenge=None, **kw):
+        fut = inner_showv(proof, revealed_msgs, challenge, **kw)
+
+        def keep(f):
+            if f.exception(0) is None and f.result(0) is True and len(accepted) < 4 * SCN_SPEC_SHOWS:
+                accepted.append((proof, revealed_msgs, challenge))
+
+        fut.add_done_callback(keep)
+        return fut
+
+    eng.submit_show_verify = show_verify
+    peak = session_rate / 2.0
+    base = peak / 4.0
+    curve = DiurnalCurve(base, peak, SCN_DAY_S)
+    crowd = FlashCrowd(at_s=SCN_DAY_S * 0.5, duration_s=SCN_DAY_S * 0.12, multiplier=2.0,
+                       ramp_s=SCN_DAY_S * 0.05)
+    report = ScenarioReport(slo_s=SCN_SLO_S, flash_window=crowd.window())
+    readings = []
+    try:
+        eng.start()
+        # one session outside the day, as the reference's lane: the first
+        # batch of every program pays its tables here
+        t0 = time.perf_counter()
+        rng = random.Random(SCN_SEED)
+        w_msgs = [rng.randrange(1, R) for _ in range(entry.MSG_COUNT)]
+        w_esk, w_epk = elgamal_keygen(params.ctx.sig, params.g)
+        req, _ = eng.submit_prepare(w_msgs, w_epk).result(900.0)
+        cred = eng.submit_mint(req, w_msgs, w_esk).result(900.0)
+        proof, chal, rev = eng.submit_show_prove(cred, w_msgs).result(900.0)
+        if eng.submit_show_verify(proof, rev, chal).result(900.0) is not True:
+            raise AssertionError("the warm-up show was refused")
+        warmup_s = time.perf_counter() - t0
+        accepted.clear()
+        metrics.reset()
+        elastic = ElasticController(
+            eng, policy=ElasticPolicy(min_executors=1, grow_after=2, shrink_after=3))
+        inner_sample = elastic.sample
+
+        def sample(now=None):
+            r = inner_sample(now)
+            readings.append(r)
+            return r
+
+        elastic.sample = sample
+        mix = [
+            (2.0, PetitionScenario(eng, params, campaigns=4, resign_p=0.15)),
+            (2.0, EcashScenario(eng, params, double_spend_p=0.15)),
+            (1.0, AccessScenario(eng, params, session_range=(2, 3))),
+        ]
+        # each terminal run's (scenario, outcome, steps done): where a
+        # deadline caught it
+        reached = collections.Counter()
+        inner_record = report.record
+
+        def record(run):
+            reached["%s/%s/%d" % (run.wf.name, run.outcome, run.steps_done)] += 1
+            inner_record(run)
+
+        report.record = record
+        driver = PopulationDriver(
+            Population(SCN_USERS, n_tenants=8, seed=SCN_SEED), mix, RateSchedule(curve, [crowd]),
+            SCN_DAY_S, max_in_flight=SCN_IN_FLIGHT, seed=SCN_SEED, report=report, engine=eng,
+            elastic=elastic, drain_timeout_s=SCN_DRAIN_S,
+        )
+        t0 = time.perf_counter()
+        out = driver.run()
+        day_s = time.perf_counter() - t0
+        snap = metrics.snapshot()
+        counters = snap["counters"]
+        n_day = len(readings)
+        planted = _planted_checks(eng, params, elastic, (w_msgs, w_epk))
+        planted["policy_readings"] = [[d, None if b is None else round(b, 4), a]
+                                      for d, b, a in readings[n_day:]]
+        del readings[n_day:]
+    finally:
+        if not eng.drain(timeout=300.0):
+            raise AssertionError("the scenario engine did not drain")
+        store.close()
+        shutil.rmtree(root, ignore_errors=True)
+    totals, rejections = out["totals"], out["rejections"]
+    labels = {label for per in rejections.values() for label in per}
+    rejected = sum(sum(per.values()) for per in rejections.values())
+    started = counters.get("scenario_started", 0)
+    terminal = sum(counters.get("scenario_%s" % o, 0) for o in TERMINAL_OUTCOMES)
+    good = out["availability"]["per_second_goodput"]
+    day = good[: int(SCN_DAY_S)]
+    q = len(day) // 4
+    mid, opening = day[q: len(day) - q], day[:q]
+    hops = {ns: {"batches": counters.get("%s_batches" % ns, 0),
+                 "requests": counters.get("%s_batched_requests" % ns, 0)}
+            for ns in ("prep", "issue", "prove", "showv")}
+    for h in hops.values():
+        h["mean"] = h["requests"] / h["batches"] if h["batches"] else None
+    result = {
+        "session_rate": session_rate, "base_rate": base, "peak_rate": peak, "warmup_s": warmup_s,
+        "day_s": day_s, "totals": totals, "outcomes": out["outcomes"], "rejections": rejections,
+        "error_codes": out["error_codes"], "started": started, "terminal": terminal,
+        "goodput_peak_half_per_s": sum(mid) / max(1, len(mid)),
+        "goodput_trough_per_s": sum(opening) / max(1, len(opening)),
+        "goodput_per_s": out["goodput_per_s"], "per_second_goodput": good,
+        "latency_s": out["latency_s"], "flash_p99_s": out["slo"]["flash_p99_s"],
+        "flash_completed": out["slo"]["flash_completed"], "slo_s": SCN_SLO_S,
+        "slo_attainment": out["slo"]["attainment"], "elastic": out["elastic"],
+        "parks": counters.get("elastic_parked", 0), "unparks": counters.get("elastic_unparked", 0),
+        "policy_readings": [[d, None if b is None else round(b, 4), a] for d, b, a in readings],
+        "pool_timeline": [s["active_executors"] for s in out["timeline"]],
+        "hop_batches": hops, "driver": out["driver"], "accepted_shows": len(accepted),
+        "reached": dict(sorted(reached.items())),
+        "latency_hists": {k: v for k, v in snap.get("histograms", {}).items()
+                          if k.endswith(("_latency_s", "_quorum_wait_s", "_batch_wait_s"))},
+        "issue_counters": {k: v for k, v in counters.items() if k.startswith("issue_")},
+    }
+    result["planted"] = planted
+    log("scenarios_day", **result, card=card)
+    if totals["failed"] or totals["cancelled"] or not totals["completed"]:
+        raise AssertionError("scenario day: %s, error codes %s" % (totals, out["error_codes"]))
+    if labels - {"double_spend"} or planted["double_spend"][:2] != ["rejected", "double_spend"]:
+        raise AssertionError("scenario rejections %s, planted double spend %s"
+                             % (rejections, planted["double_spend"]))
+    if planted["pool"] != planted["expected_pool"]:
+        raise AssertionError("the elastic pool: day %s, planted %s" % (out["elastic"], planted["pool"]))
+    if started != terminal:
+        raise AssertionError("%d workflows started, %d reached a terminal" % (started, terminal))
+    if len(accepted) < SCN_SPEC_SHOWS:
+        raise AssertionError("only %d accepted shows" % len(accepted))
+    t0 = time.perf_counter()
+    for proof, rv, chal in accepted[:SCN_SPEC_SHOWS]:
+        if not pok_sig.show_verify(proof, eng.vk, params, rv, chal):
+            raise AssertionError("an accepted show fails the host spec")
+    result["spec_shows"], result["spec_s"] = SCN_SPEC_SHOWS, time.perf_counter() - t0
+    return result
+
+
+SCN_BACKLOG = BATCH // 2  # a planted prepare batch: half a batch, below the brownout depth
+
+
+def _planted_checks(eng, params, elastic, user_keys):
+    """Beside the day, on its engine once its runs have ended: one e-cash
+    user who always re-spends (the detector must refuse the second spend
+    as a double spend, whatever the day's draws and deadlines left), then
+    an idle stretch that must park an executor (unless the day left one
+    parked) and a backlog that must unpark it: ElasticController.tick
+    on explicit times 1 s apart, so the idle ticks read no busy time
+    and each backlog tick reads the two prepare batches before it."""
+    from coconut_tpu_torch.scenarios import EcashScenario, Population, run_workflow
+
+    t0 = time.perf_counter()
+    user = Population(1, seed=SCN_SEED).user(0)
+    run = run_workflow(EcashScenario(eng, params, double_spend_p=1.0).workflow(
+        user, random.Random(SCN_SEED)))
+    double_spend = [run.outcome, run.outcome_label, run.steps_done, time.perf_counter() - t0]
+    pool, active = [], eng.active_pool_size()
+    expect = ["shrink"] * (active > 1) + ["grow"]  # the day may have left one parked
+    t = time.monotonic()
+    for i in range(1, 7):  # idle: no request queued, no batch settling
+        if eng.active_pool_size() == 1:
+            break
+        move = elastic.tick(now=t + i)
+        if move:
+            pool.append(move)
+    msgs, epk = user_keys
+    for i in range(7, 10):  # a backlog: two prepare batches between ticks
+        for _ in range(2):
+            for f in [eng.submit_prepare(msgs, epk) for _ in range(SCN_BACKLOG)]:
+                f.result(900.0)
+        time.sleep(0.1)  # a settle's busy timer accrues after its futures resolve
+        move = elastic.tick(now=t + i)
+        if move:
+            pool.append(move)
+            break
+    return {"double_spend": double_spend, "active_after_day": active, "pool": pool,
+            "expected_pool": expect, "backlog": SCN_BACKLOG, "seconds": time.perf_counter() - t0}
+
+
+def _rolling_restart(card, honest, be):
+    """Drain a verify replica (over the main path's warm backend `be`)
+    mid-load at B = 1024, then boot its successor in a fresh process from
+    the saved manifest and time spawn to first verdict."""
+    from coconut_tpu_torch.engine import LifecycleController, ProtocolEngine, ShapeManifest
+    from coconut_tpu_torch.net.rpc import Replica
+    from coconut_tpu_torch.net.wire import WireCodec
+
+    params, _, vk, sigs, msgs = honest
+    sigs, msgs, expect = entry.forge(params, sigs, msgs, every=FORGE_EVERY)
+    _, signers, _, _, _ = entry.issue_fixture(1)
+    root = tempfile.mkdtemp(prefix="chip-restart-")
+    manifest = os.path.join(root, "shapes.json")
+
+    try:
+        eng = ProtocolEngine(
+            signers, params, entry.ISSUANCE_THRESHOLD, count_hidden=entry.ISSUANCE_HIDDEN,
+            revealed_msg_indices=list(entry.SHOW_REVEALED), vk=vk, backend=be, devices=1,
+            max_batch=BATCH, max_wait_ms=SERVE_WAIT_MS, max_depth=2 * BATCH,
+            watchdog=Watchdog(min_timeout_s=SESSION_WATCHDOG_FLOOR_S),
+        )
+        _on_card(eng.backend, "backend='torch'")
+        lc = LifecycleController(eng, manifest_path=manifest)
+        rep = Replica(eng, WireCodec(params), replica_id="roll-0", lifecycle=lc)
+        beacons = [rep.beacon().state]
+        lc.boot()
+        beacons.append(rep.beacon().state)
+        eng.start()
+        t0 = time.perf_counter()
+        bits = [f.result(900.0) for f in [eng.submit_verify(s, m) for s, m in zip(sigs, msgs)]]
+        first_s = time.perf_counter() - t0
+        if bits != expect:
+            raise AssertionError("the predecessor's verdicts are not the expected ones")
+        # two batches in flight, then the drain
+        futs = [eng.submit_verify(s, m) for s, m in zip(sigs, msgs) for _ in range(2)]
+        states = [(lc.state, rep.beacon().state)]
+        done = []
+        t0 = time.perf_counter()
+        drainer = threading.Thread(target=lambda: done.append(rep.begin_drain(timeout=300.0)))
+        drainer.start()
+        while drainer.is_alive():
+            st = (lc.state, rep.beacon().state)
+            if st != states[-1]:
+                states.append(st)
+            time.sleep(0.005)
+        drainer.join()
+        drain_s = time.perf_counter() - t0
+        st = (lc.state, rep.beacon().state)
+        if st != states[-1]:
+            states.append(st)
+        dropped = sum(not f.done() for f in futs)
+        in_flight = [f.result(0) for f in futs if f.done()]
+        if dropped or not done or not done[0]:
+            raise AssertionError("drain: %d dropped futures, drained %s" % (dropped, done))
+        if in_flight != [b for b in expect for _ in range(2)]:
+            raise AssertionError("the drained batches' verdicts are not the expected ones")
+        if [k for k, _ in itertools.groupby(s for s, _ in states)] != ["up", "draining", "closed"]:
+            raise AssertionError("lifecycle states %s" % states)
+        saved = ShapeManifest.load(manifest)
+        if not len(saved):
+            raise AssertionError("the drain saved no manifest")
+        with open(os.path.join(root, "fixture.pkl"), "wb") as fh:
+            pickle.dump((signers, params, vk, sigs, msgs), fh)
+        t_spawn = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-c", _SUCCESSOR, root], capture_output=True, text=True,
+            timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        if proc.returncode != 0:
+            raise AssertionError("the successor failed:\n%s" % proc.stderr[-4000:])
+        succ = json.loads(proc.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result = {
+        "predecessor_beacons": beacons, "first_batch_s": first_s, "drain_states": states,
+        "drain_s": drain_s, "dropped": dropped, "manifest_shapes": [list(x) for x in saved.shapes],
+        "restart_wall_s": succ["t_first_verdict"] - t_spawn,
+        "spawn_to_script_s": succ["t_spawned"] - t_spawn,
+        "successor": {k: v for k, v in succ.items() if k not in ("bits", "t_spawned", "t_first_verdict")},
+    }
+    log("scenarios_restart", **result, card=card)
+    if succ["bits"] != bits:
+        raise AssertionError("the successor's verdicts differ from its predecessor's")
+    if succ["counters"].get("lifecycle_warm_skipped") != len(saved) or succ["boot"] != [0, len(saved)]:
+        raise AssertionError("successor boot %s, counters %s, manifest of %d shapes"
+                             % (succ["boot"], succ["counters"], len(saved)))
+    if succ["beacons"] != ["warming", "healthy"] or not succ["cache_ok"]:
+        raise AssertionError("successor beacons %s, cache %s" % (succ["beacons"], succ["cache_ok"]))
+    if not succ["device"].startswith("cuda") or not succ["launches"] or succ["plain_calls"]:
+        raise AssertionError("successor on %s: %d launches, %d plain calls"
+                             % (succ["device"], succ["launches"], succ["plain_calls"]))
+    return result, succ["launches"]
+
+
+def scenarios_phase(card, session_rate, honest, be):
+    """The replica lifecycle, elastic pool sizing and the application
+    scenarios on the card: the petition / e-cash / access day on a
+    ProtocolEngine with an ElasticController, then a rolling restart of a
+    verify replica into a fresh process."""
+    started = time.perf_counter()
+    cuda_fp.LAUNCHES = 0
+    cuda_fp.PLAIN_CALLS = 0
+    metrics.reset()
+    day = _application_day(card, session_rate)
+    day_launches = cuda_fp.LAUNCHES
+    restart, child_launches = _rolling_restart(card, honest, be)
+    launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    if not day_launches or plain:
+        raise AssertionError("scenarios phase: %d launches in the day, %d plain calls"
+                             % (day_launches, plain))
+    log("scenarios", restart_wall_s=restart["restart_wall_s"],
+        goodput_peak_half_per_s=day["goodput_peak_half_per_s"],
+        goodput_trough_per_s=day["goodput_trough_per_s"], flash_p99_s=day["flash_p99_s"],
+        parks=day["parks"], unparks=day["unparks"], day_launches=day_launches,
+        restart_launches=launches - day_launches, successor_launches=child_launches,
+        launches=launches + child_launches, plain_calls=plain,
+        seconds=time.perf_counter() - started, card=card)
+    return launches + child_launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
@@ -2814,12 +3229,13 @@ def main():
     by_path["serve"] = timed("serve", serve_phase(card, vhonest, vrate))
     by_path["issue_service"] = timed(
         "issue_service", issue_service_phase(card, irates["issued_credentials_per_s"]))
-    by_path["keylife_session"], issued, session = timed(
+    by_path["keylife_session"], issued, session, session_rate = timed(
         "keylife_session", keylife_session_phase(card, dict(
             irates, verify_per_s=vrate, proofs_per_s=prate, show_verify_per_s=srate)))
     by_path["ct_probe"] = timed("ct_probe", ct_probe_phase(card, issued))
     by_path["nullifier"] = timed("nullifier", nullifier_phase(card, session))
     by_path["gateway"] = timed("gateway", gateway_phase(card, vhonest))
+    by_path["scenarios"] = timed("scenarios", scenarios_phase(card, session_rate, vhonest, vbe))
     log("done", seconds=time.perf_counter() - started, phase_seconds=phase_s, card=card)
     kern["launches"] = sum(by_path.values())
     kern["launches_by_path"] = by_path

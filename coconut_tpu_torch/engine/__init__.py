@@ -16,6 +16,11 @@ after `coconut_tpu/engine/`:
   session.py   ProtocolEngine: all five phases on ONE engine instance —
                full prepare -> mint -> show-prove -> show-verify sessions
                against a single pool.
+  lifecycle.py Replica lifecycle: ShapeManifest persistence,
+               LifecycleController (WARMING -> UP -> DRAINING -> CLOSED
+               with warm-boot manifest replay and readiness gating),
+               and ElasticPolicy/ElasticController (hysteresis-guarded
+               grow/shrink of the executor pool).
 
 serve.CredentialService and issue.IssuanceService are program
 registrations on this engine (VerifyProgram and MintProgram).
@@ -23,9 +28,24 @@ registrations on this engine (VerifyProgram and MintProgram).
 
 from .core import ExecutionEngine
 from .executor import Executor
+from .lifecycle import (
+    ElasticController,
+    ElasticPolicy,
+    LifecycleController,
+    ShapeManifest,
+)
 from .program import Program
 
-__all__ = ["ExecutionEngine", "Executor", "Program", "ProtocolEngine"]
+__all__ = [
+    "ExecutionEngine",
+    "Executor",
+    "Program",
+    "ProtocolEngine",
+    "LifecycleController",
+    "ShapeManifest",
+    "ElasticPolicy",
+    "ElasticController",
+]
 
 
 def __getattr__(name):

@@ -101,12 +101,18 @@ class ExecutionEngine:
         self._thread = None
         self._placers = []
         self._seq_lock = threading.Lock()
+        self._claim_lock = threading.Lock()
         self._batch_seq = 0  # batch ids + fan-out ids + retry jitter keys
         self._crashed = None
         self._crash_msg = "service supervisor crashed: %r"
         #: (program, placement, shape) triples already dispatched — the
         #: per-program jit-shape cache bookkeeping behind "%ns_jit_shapes"
         self._shape_keys = set()
+        #: labels of pool executors the elastic sizer has PARKED: alive
+        #: objects, no worker thread, excluded from placement/capacity —
+        #: distinct from quarantine (parking is intentional and must not
+        #: look like degradation to the brownout policy)
+        self._parked = set()
 
         # self-healing surfaces (serve/health.py)
         self.health_policy = (
@@ -456,7 +462,10 @@ class ExecutionEngine:
     def _admits(self, ex):
         """May the placer route NEW work to `ex`? HEALTHY/SUSPECT always;
         PROBATION only while its half-open probe slot is free (one
-        unsettled probe batch at a time); QUARANTINED never."""
+        unsettled probe batch at a time); QUARANTINED never; PARKED
+        (elastic shrink) never."""
+        if ex.label in self._parked:
+            return False
         h = self._health_of(ex.label)
         if not h.admissible():
             return False
@@ -468,8 +477,14 @@ class ExecutionEngine:
         """Fraction of the pool the placer may still route to — the
         brownout policy's degradation signal. 1.0 with no pool (the pool
         isn't this engine's bottleneck then; own-worker programs
-        override their capacity signal)."""
-        exs = self._all_executors()
+        override their capacity signal). Computed over the NON-PARKED
+        pool: an intentional elastic shrink is not degradation and must
+        never trip the brownout ladder."""
+        exs = [
+            ex
+            for ex in self._all_executors()
+            if ex.label not in self._parked
+        ]
         if not exs:
             return 1.0
         ok = sum(1 for ex in exs if self._health_of(ex.label).admissible())
@@ -483,7 +498,8 @@ class ExecutionEngine:
                 sum(
                     1
                     for ex in exs
-                    if self._health_of(ex.label).admissible()
+                    if ex.label not in self._parked
+                    and self._health_of(ex.label).admissible()
                 ),
             )
         for rt in self._order:
@@ -541,8 +557,20 @@ class ExecutionEngine:
             survivors = [
                 ex
                 for ex in self._all_executors()
-                if self._health_of(ex.label).admissible() or ex.has_worker()
+                if ex.label not in self._parked
+                and (
+                    self._health_of(ex.label).admissible() or ex.has_worker()
+                )
             ]
+            if not survivors and self._parked:
+                # every ACTIVE executor is gone but the elastic sizer is
+                # holding spares: unparking beats crashing the engine
+                for label in sorted(self._parked):
+                    metrics.count("elastic_emergency_unparked")
+                    self.unpark_executor(label)
+                survivors = [
+                    ex for ex in self._all_executors() if ex.has_worker()
+                ]
             if not survivors:
                 self._crash(cause)
                 for rest in batches[i:]:
@@ -618,6 +646,24 @@ class ExecutionEngine:
                 ex.start()  # respawn an abandoned worker; no-op otherwise
                 self._refresh_health_gauges()
                 self._kick_all()
+        # parked-executor sweep: a placer that chose an executor just
+        # before it was parked may have landed a batch in its (now
+        # workerless) inbox — re-place it on active executors instead of
+        # letting it sit until unpark
+        for label in list(self._parked):
+            ex = next(
+                (x for x in self._executors if x.label == label), None
+            )
+            if ex is None:
+                continue
+            swept = ex.sweep_inbox()
+            if swept:
+                self._redistribute(
+                    swept,
+                    TransientBackendError(
+                        "batch landed on parked executor %s" % (label,)
+                    ),
+                )
         for rt in self._order:
             rt.program.tick(now)
         if pool_expired:
@@ -631,6 +677,141 @@ class ExecutionEngine:
                 # the healer must never become the failure: count and
                 # keep ticking
                 metrics.count("%s_health_tick_errors" % self.metric_ns)
+
+    # -- warmup: shape manifest replay (engine/lifecycle.py) -----------------
+
+    def shape_keys(self):
+        """Snapshot of the (program, placement, shape_key) triples this
+        engine has dispatched or pre-warmed so far — the lifecycle
+        layer's shape-manifest source."""
+        return set(self._shape_keys)
+
+    def warm_shapes(self, shapes):
+        """Best-effort AOT replay of a shape manifest (lifecycle warmup):
+        ask each shape's program to prime it via Program.warm(). A shape
+        the program confirms primed is pre-counted under
+        "%ns_jit_shapes" — the counter stays flat through live traffic,
+        which is exactly the no-recompile-after-warmup proof the boot
+        gate needs. Shapes for unregistered programs, shapes a program
+        declines to warm, and warm() crashes are skipped, never fatal:
+        a cold shape just compiles on first dispatch. Returns
+        (warmed, skipped)."""
+        warmed = skipped = 0
+        for entry in shapes:
+            try:
+                prog_name, placement, shape_key = entry
+            except (TypeError, ValueError):
+                skipped += 1
+                continue
+            rt = self._runtimes.get(prog_name)
+            if rt is None:
+                skipped += 1
+                continue
+            try:
+                primed = bool(rt.program.warm(shape_key))
+            except Exception:
+                metrics.count("lifecycle_warm_errors")
+                skipped += 1
+                continue
+            if not primed:
+                skipped += 1
+                continue
+            shape = (prog_name, placement, shape_key)
+            if shape not in self._shape_keys:
+                self._shape_keys.add(shape)
+                metrics.count("%s_jit_shapes" % rt.program.metric_ns)
+            warmed += 1
+        return warmed, skipped
+
+    # -- elastic pool sizing (engine/lifecycle.ElasticController) ------------
+
+    def total_depth(self):
+        """Queued requests across EVERY program — the elastic sizer's
+        pressure signal (`depth()` is the primary program only)."""
+        return sum(rt.queue.depth() for rt in self._order)
+
+    def active_pool_size(self):
+        """Pool executors currently accepting work (not parked); the
+        mesh lane is never elastic."""
+        return sum(
+            1 for ex in self._executors if ex.label not in self._parked
+        )
+
+    def parked_executors(self):
+        return set(self._parked)
+
+    def park_executor(self, label=None):
+        """Elastic SHRINK: take one IDLE pool executor out of placement.
+        Parking reuses the watchdog's abandon path — the worker thread exits
+        via the stale-generation check, the executor object stays
+        restartable — but is deliberately invisible to the health ladder
+        (no quarantine, no brownout pressure). Only an idle executor
+        (zero unsettled batches) may park: parking mid-flight would
+        strand futures behind a workerless inbox. Never parks the last
+        active executor. Returns the parked label, or None when nothing
+        was eligible."""
+        pool = [ex for ex in self._executors if ex.label not in self._parked]
+        if len(pool) <= 1:
+            return None
+        if label is None:
+            idle = [
+                ex
+                for ex in pool
+                if ex.batches_out() == 0
+                and self._health_of(ex.label).admissible()
+            ]
+            if not idle:
+                return None
+            ex = max(idle, key=lambda e: e.index)
+        else:
+            ex = next((e for e in pool if e.label == label), None)
+            if ex is None or ex.batches_out() > 0:
+                return None
+        self._parked.add(ex.label)
+        if ex.batches_out() > 0:
+            # raced with a placer between the idle check and the park:
+            # back out rather than strand the in-flight batch
+            self._parked.discard(ex.label)
+            return None
+        swept = ex.abandon()
+        self._watchdog.forget_label(ex.label)
+        if swept:
+            from ..errors import TransientBackendError
+
+            self._redistribute(
+                swept,
+                TransientBackendError(
+                    "executor %s parked mid-submit" % (ex.label,)
+                ),
+            )
+        metrics.count("elastic_parked")
+        metrics.set_gauge(
+            "elastic_active_executors", self.active_pool_size()
+        )
+        self._refresh_health_gauges()
+        return ex.label
+
+    def unpark_executor(self, label=None):
+        """Elastic GROW: return a parked executor to placement via the
+        respawn path (Executor.start() under a fresh generation).
+        Returns the unparked label, or None when nothing was parked."""
+        if label is None:
+            if not self._parked:
+                return None
+            label = min(self._parked)
+        if label not in self._parked:
+            return None
+        self._parked.discard(label)
+        ex = next((e for e in self._executors if e.label == label), None)
+        if ex is not None:
+            ex.start()
+        metrics.count("elastic_unparked")
+        metrics.set_gauge(
+            "elastic_active_executors", self.active_pool_size()
+        )
+        self._refresh_health_gauges()
+        self._kick_all()
+        return label
 
     # -- placement -----------------------------------------------------------
 
@@ -705,9 +886,17 @@ class ExecutionEngine:
                 if prog.supports_mesh
                 else list(self._executors)
             )
+            candidates = [
+                ex for ex in candidates if ex.label not in self._parked
+            ] or candidates
             pool = (
                 admitted
                 or [ex for ex in candidates if ex.has_worker()]
+                or [
+                    ex
+                    for ex in self._executors
+                    if ex.label not in self._parked
+                ]
                 or self._executors
             )
             chosen = min(pool, key=lambda ex: (ex.load(), ex.index))
@@ -855,10 +1044,13 @@ class ExecutionEngine:
                 self._watchdog.end(
                     executor.label, seq, ok=False, now=self.clock()
                 )
-                if requests and all(r.future.done() for r in requests):
+                if requests and (
+                    all(r.future.done() for r in requests)
+                    or not self._claim(requests)
+                ):
                     # stale settle: the watchdog timed this batch out and
-                    # it was redistributed (and resolved) elsewhere — the
-                    # late failure is nobody's news
+                    # it was redistributed (and resolved or claimed)
+                    # elsewhere — the late failure is nobody's news
                     bspan.end(result="stale")
                     return
                 # batch-level failure past retry+fallback: each
@@ -869,16 +1061,35 @@ class ExecutionEngine:
                 self._note_failure(executor, e)
                 return
             self._watchdog.end(executor.label, seq, now=self.clock())
-            if requests and all(r.future.done() for r in requests):
+            if requests and (
+                all(r.future.done() for r in requests)
+                or not self._claim(requests)
+            ):
                 # stale settle (watchdog fired, batch redistributed): the
-                # verdicts were already delivered by the re-dispatch;
-                # drop these — ServeFuture is single-assignment anyway
+                # verdicts were already delivered, or are being delivered,
+                # by the other settle of this batch; drop these
                 bspan.end(result="stale")
                 return
             self._note_success(executor)
             prog.demux(
                 requests, result, payload_a, payload_b, seq, attempts, bspan
             )
+
+    def _claim(self, requests):
+        """Take the right to resolve `requests`: True for the first settle
+        of a batch, False for every later one. A batch the watchdog
+        redistributed settles twice, on its new executor and on the hung
+        worker once it returns, and the two can overlap: the reference
+        only asks whether every future is done, so a second show-verify
+        demux that starts while the first is between its nullifier commit
+        and its futures finds the nullifier spent and refuses an honest
+        spend as a double spend (ROADMAP §3)."""
+        with self._claim_lock:
+            if any(r.settled for r in requests):
+                return False
+            for r in requests:
+                r.settled = True
+            return True
 
     # -- placers -------------------------------------------------------------
 

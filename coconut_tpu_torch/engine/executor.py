@@ -128,10 +128,20 @@ class Executor:
             self._cond.notify_all()
 
     def join(self, timeout=None):
-        if self._thread is None:
+        """Wait for the current worker. The thread is read once, under the
+        lock: abandon() may clear it while we wait (a watchdog expiry
+        during a drain, or a park), and a worker abandoned meanwhile is
+        done as far as the caller is concerned — its work was handed on.
+        (The reference reads `_thread` again after the wait, which raises
+        AttributeError when abandon() ran in between.)"""
+        with self._cond:
+            thread = self._thread
+        if thread is None:
             return True
-        self._thread.join(timeout)
-        return not self._thread.is_alive()
+        thread.join(timeout)
+        with self._cond:
+            abandoned = self._thread is not thread
+        return abandoned or not thread.is_alive()
 
     def has_worker(self):
         """A live (non-abandoned) worker thread exists — the executor can

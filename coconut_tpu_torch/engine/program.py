@@ -114,6 +114,17 @@ class Program:
         except TypeError:
             return (len(requests),)
 
+    def warm(self, shape_key):
+        """Best-effort ahead-of-time priming of ONE shape — the lifecycle
+        warmup's manifest-replay seam (engine/lifecycle.py). Return True
+        when the shape was actually primed, so the engine may pre-count
+        it under "%ns_jit_shapes". The default returns False, as the
+        reference's does: the port has no jit, and a program whose
+        dispatch cannot run without live request payloads leaves the
+        shape's first-batch costs (the comb tables, the static operands)
+        to its first dispatch."""
+        return False
+
     def run_dispatch(self, executor, payload_a, payload_b):
         """Dispatch the assembled batch on `executor`; returns the
         finalizer the engine blocks on in _settle."""

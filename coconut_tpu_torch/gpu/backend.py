@@ -70,6 +70,7 @@ from . import glv
 from . import pairing as pr
 from . import tower as tw
 from .limbs import NLIMBS, fp_encode, fp_encode_raw_batch, fr_digits_signed_np
+from .serial import serialize_methods, serialized
 
 _SIGNED_NWIN = 52  # signed 5-bit windows covering the 255-bit Fr
 
@@ -725,6 +726,7 @@ def _decode_points(x, y, inf):
     return [None if i else (xv, yv) for xv, yv, i in zip(xs, ys, inf.cpu().tolist())]
 
 
+@serialize_methods
 class TorchBackend:
     """Batched PyTorch/CUDA backend with the verify, show-verify and
     CurveBackend MSM surface of JaxBackend.
@@ -1368,4 +1370,4 @@ class TorchBackend:
 def _finalizer(bits):
     """Zero-arg function that waits for a device bool [B] and returns it as
     a list of Python bools."""
-    return lambda: [bool(b) for b in bits.cpu().tolist()]
+    return serialized(lambda: [bool(b) for b in bits.cpu().tolist()])

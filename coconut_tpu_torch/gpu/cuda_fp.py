@@ -12,11 +12,12 @@ layer's executor threads call the wrapper concurrently: the build and the
 library load run under one module lock, and the counts under another.
 
 The plain version repeats the kernel's pipeline step for step (see the
-note at the top of fp_mul.cu and gpu/fp.py) in float64: a * b as sums of
-shifted rows, the products by the constants N' and p as matrix products
-with their Toeplitz matrices. Every partial sum is an integer far below
-2^53, so it is exact on any device and in any order (float64 matrix
-products never run in TF32).
+note at the top of fp_mul.cu and gpu/fp.py): a * b as sums of shifted
+rows (on the CPU at narrow widths one outer product), the products by the
+constants N' and p as matrix products with their Toeplitz matrices. Every
+partial sum is an integer below 2^21, so it is exact in any order: in
+float32 on the CPU and in float64 on the card (a CUDA float32 matrix
+product may run in TF32; a float64 one never does).
 """
 
 import collections
@@ -212,7 +213,7 @@ def launch(a, b, out):
 
 
 def _toeplitz(row, out_len):
-    """[52, out_len] float64 matrix M with M[i, i + j] = row[j]: x @ M is
+    """[52, out_len] matrix M with M[i, i + j] = row[j]: x @ M is
     the limb product of x with the constant `row`, truncated."""
     m = np.zeros((NLIMBS, _OUT2), dtype=np.float64)
     for i in range(NLIMBS):
@@ -220,45 +221,91 @@ def _toeplitz(row, out_len):
     return m[:, :out_len]
 
 
+def _plain_dtype(device):
+    """float32 on the CPU, float64 elsewhere. Every value of the pipeline
+    is an integer below 2^21 (|limbs| <= 132 after the first passes, 52
+    products of two such limbs, plus 52 of N' or p limbs and m limbs), so
+    float32 holds it exactly; a CUDA float32 matrix product may run in
+    TF32, which would not, so on the card the plain version keeps
+    float64."""
+    return torch.float32 if device.type == "cpu" else torch.float64
+
+
 @functools.lru_cache(maxsize=None)
 def _plain_consts(device):
-    """Product-by-constant matrices for m = tlo * N' and m * p."""
-    as64 = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
-    return as64(_toeplitz(_NPRIME_NP, NLIMBS)), as64(_toeplitz(_P_BAL_NP, _OUT2))
+    """Product-by-constant matrices for m = tlo * N' and m * p, and on the
+    CPU the carry matrices of the two row widths the pipeline normalizes
+    (52 and 55 limbs)."""
+    dt = _plain_dtype(device)
+    as_t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
+    carry = {}
+    if device.type == "cpu":
+        carry = {w: _carry_matrix(w, dt) for w in (NLIMBS, NLIMBS + 3)}
+    return as_t(_toeplitz(_NPRIME_NP, NLIMBS)), as_t(_toeplitz(_P_BAL_NP, _OUT2)), carry
+
+
+#: the CPU's narrow forms, where a PyTorch call's fixed cost dominates:
+#: up to OUTER_LANES lanes the limb product is one outer product summed
+#: along its anti-diagonals, up to CARRY_MATRIX_LANES a carry pass is one
+#: product with a fixed matrix (crossovers and gains measured with
+#: `python -m coconut_tpu_torch.bench_plain`). On the card the plain
+#: version keeps the one path the kernel is held against.
+OUTER_LANES = 64
+CARRY_MATRIX_LANES = 24
+
+
+@functools.lru_cache(maxsize=None)
+def _diagonals(device):
+    """Column k of the flattened 52 x 52 outer product x_i y_j: i + j."""
+    i = torch.arange(NLIMBS, device=device)
+    return (i[:, None] + i[None, :]).reshape(-1)
+
+
+def _carry_matrix(width, dt):
+    """[width, width] M with t + hi @ M = t - 256 hi + (hi shifted up a
+    limb, the top limb's carry dropped): one carry pass after hi."""
+    m = torch.diag(torch.full((width,), -256.0, dtype=dt))
+    m += torch.diag(torch.ones(width - 1, dtype=dt), 1)
+    return m
 
 
 def _school(x, y):
     """c_k = sum_{i+j=k} x_i y_j over [N, 52] rows: the 103 coefficients of
-    the limb product. The limbs of x go in 4 blocks of 13, one shifted
-    multiply-add per limb of a block for all 4 blocks at once, then the
-    blocks' partial products are added at their offsets. Every term and
-    every sum is an integer far below 2^53, so float64 adds them exactly
-    in any order."""
+    the limb product. On the CPU up to OUTER_LANES rows: the outer product
+    added into its anti-diagonals. Else the limbs of x go in 4 blocks of
+    13, one shifted multiply-add per limb of a block for all 4 blocks at
+    once, then the blocks' partial products are added at their offsets.
+    Every term and every sum is an integer below 2^21, so either working
+    type adds them exactly in any order."""
     n, blk = x.shape[0], NLIMBS // 4
+    if x.device.type == "cpu" and n <= OUTER_LANES:
+        prod = (x[:, :, None] * y[:, None, :]).reshape(n, NLIMBS * NLIMBS)
+        return x.new_zeros((n, _OUT2)).index_add_(1, _diagonals(x.device), prod)
     xb = x.reshape(n, 4, blk)
     yb = y[:, None, :]
     part = x.new_zeros((n, 4, NLIMBS + blk - 1))
     for i in range(blk):
-        part[:, :, i : i + NLIMBS].addcmul_(xb[:, :, i : i + 1], yb)
+        part.narrow(2, i, NLIMBS).addcmul_(xb.narrow(2, i, 1), yb)
     t = x.new_zeros((n, _OUT2))
     for j in range(4):
-        t[:, blk * j : blk * (j + 1) + NLIMBS - 1] += part[:, j]
+        t.narrow(1, blk * j, NLIMBS + blk - 1).add_(part[:, j])
     return t
 
 
-def _pass(t):
-    """One carry pass: hi = round_half_even(t / 256) (torch.round rounds
-    ties to even, like jnp.round), lo = t - 256 hi, hi shifted up a limb
-    with the top limb's carry dropped."""
-    hi = (t * (1.0 / 256.0)).round_()
-    lo = t.add(hi, alpha=-256.0)
-    lo[..., 1:] += hi[..., :-1]
-    return lo
-
-
-def _norm(t, passes):
+def _norm(t, passes, carry=None):
+    """`passes` carry passes: hi = round_half_even(t / 256) (torch.round
+    rounds ties to even, like jnp.round), lo = t - 256 hi, hi shifted up a
+    limb with the top limb's carry dropped. With `carry` (the rows' carry
+    matrix, given on the CPU at narrow widths) a pass is t + hi @ carry:
+    every value is an integer below 2^21, so that form is exact too."""
+    width = t.shape[-1]
     for _ in range(passes):
-        t = _pass(t)
+        hi = (t * (1.0 / 256.0)).round_()
+        if carry is not None:
+            t = torch.addmm(t, hi, carry)
+            continue
+        t = t.add(hi, alpha=-256.0)
+        t.narrow(-1, 1, width - 1).add_(hi.narrow(-1, 0, width - 1))
     return t
 
 
@@ -267,15 +314,20 @@ def mul_plain(a, b):
     global PLAIN_CALLS
     with _COUNT_LOCK:
         PLAIN_CALLS += 1
-    by_nprime, by_p = _plain_consts(a.device)
+    by_nprime, by_p, carry = _plain_consts(a.device)
     shape = torch.broadcast_shapes(a.shape, b.shape)
-    a1 = _norm(_flat(a, shape).double(), 2)  # |limbs| <= 132
-    b1 = _norm(_flat(b, shape).double(), 2)
-    t = _school(a1, b1)
-    tlo = _norm(t[:, :NLIMBS], 3)  # t mod 2^416 (truncation intended)
-    m = _norm(tlo @ by_nprime, 3)  # low 52 coefficients of tlo * N'
-    w = t + m @ by_p  # = t + m*p
-    lo = _norm(F.pad(w[:, :NLIMBS], (0, 3)), 3)  # carry lands in 52..54
+    a1, b1 = _flat(a, shape), _flat(b, shape)
+    n = a1.shape[0]
+    c52 = c55 = None
+    if carry and n <= CARRY_MATRIX_LANES:
+        c52, c55 = carry[NLIMBS], carry[NLIMBS + 3]
+    # a and b normalized as one stack: half the PyTorch calls
+    ab = _norm(torch.cat((a1, b1)).to(by_p.dtype), 2, c52)  # |limbs| <= 132
+    t = _school(ab[:n], ab[n:])
+    tlo = _norm(t[:, :NLIMBS], 3, c52)  # t mod 2^416 (truncation intended)
+    m = _norm(tlo @ by_nprime, 3, c52)  # low 52 coefficients of tlo * N'
+    w = torch.addmm(t, m, by_p)  # = t + m*p
+    lo = _norm(F.pad(w[:, :NLIMBS], (0, 3)), 3, c55)  # carry lands in 52..54
     hi = F.pad(w[:, NLIMBS:], (0, 1))
-    hi = torch.cat([hi[:, :3] + lo[:, NLIMBS:], hi[:, 3:]], dim=1)
-    return _norm(hi, 3).float().reshape(shape)
+    hi[:, :3] += lo[:, NLIMBS:]
+    return _norm(hi, 3, c52).float().reshape(shape)

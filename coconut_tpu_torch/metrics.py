@@ -49,7 +49,41 @@ The host layers report here:
       (lazy-durability write failures, counted and survived); and the
       breaker journal's "health_journal_errors" (journal writes that
       raised inside a state transition — durability degrades to memory,
-      the transition never fails).
+      the transition never fails);
+  engine/lifecycle.py (the replica lifecycle)
+      gauges "lifecycle_state" (0 warming / 1 up / 2 draining /
+      3 closed), "lifecycle_warmup_s" (boot's manifest replay wall
+      time), "lifecycle_manifest_shapes" (shapes loaded at boot);
+      counters "lifecycle_warmed_shapes" / "lifecycle_warm_skipped" /
+      "lifecycle_warm_errors" (manifest replay outcomes),
+      "lifecycle_manifest_corrupt" / "lifecycle_manifest_save_errors" /
+      "lifecycle_manifest_unserializable" (artifact integrity —
+      corruption degrades to a cold boot, never a failed one), and
+      "lifecycle_cache_config_errors" (the compiled kernel library could
+      not be readied: no card or no nvcc). Elastic pool sizing: gauges
+      "elastic_active_executors" / "elastic_depth" /
+      "elastic_busy_fraction"; counters "elastic_parked" /
+      "elastic_unparked" (engine-level park/respawn), "elastic_grown" /
+      "elastic_shrunk" (controller decisions that acted), and
+      "elastic_emergency_unparked" (parked spares pressed into service
+      when every active executor died);
+  scenarios/ (the application scenarios)
+      "scenario_started" (workflows admitted by the population driver)
+      and one terminal counter per outcome — "scenario_completed",
+      "scenario_rejected" (EXPECTED typed rejections: petition re-sign /
+      e-cash double-spend, the protections firing),
+      "scenario_retry_exhausted", "scenario_deadline", "scenario_failed"
+      (unattributed errors — the acceptance bar is zero), and
+      "scenario_cancelled" (drain-cancelled runs — dangling futures,
+      also zero on a clean drain); every started workflow lands in
+      EXACTLY ONE of these, so started == the terminal sum is the
+      no-lost-workflow check. Plus "scenario_retries" (typed-transient
+      step re-submissions), "scenario_deferred" (arrivals refused by the
+      bounded in-flight window), "scenario_thinking" (arrivals skipped
+      because the sampled user was busy or in think-time),
+      "scenario_hook_errors" (terminal-hook exceptions contained), and
+      "scenario_elastic_tick_errors" (elastic controller ticks that
+      raised — sizing degrades, the run continues).
 
 Histograms keep the most recent HIST_WINDOW samples for percentiles and
 exact count / total / max over the whole run, so `snapshot()`'s

@@ -145,6 +145,7 @@ class Request:
         "queue_span",
         "redispatches",
         "program",
+        "settled",
     )
 
     def __init__(self, sig, messages, lane, max_wait_ms, t_submit):
@@ -164,6 +165,9 @@ class Request:
         # hung (serve/service.py redistribution); capped by the service's
         # max_redispatch so a poisonous batch can't serially kill the pool
         self.redispatches = 0
+        # set once by the engine's first settle of this request's batch
+        # (engine/core.py `_claim`): a redistributed batch can settle twice
+        self.settled = False
         # root span + queue-wait child start at ADMISSION (submit sets
         # them after the request clears admission control); both are the
         # shared no-op span while tracing is disabled

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import metrics
+from ..gpu.serial import serialized
 
 _TAG = b"coconut-nullifier/v1"
 _TAG_V2 = b"coconut-nullifier/v2"
@@ -194,6 +195,7 @@ def lower_bound_hits(table, n_real, queries):
     return (table[pos] == queries).all(dim=1) & (pos < n_real)
 
 
+@serialized
 def membership_probe(table, n_real, queries, device="cpu"):
     """Boolean hit mask (numpy) for `queries` ([m, 8] limb rows) against a
     sorted padded `table` ([pad, 8]), run as torch ops on `device`. Rows

@@ -12,6 +12,7 @@ default device (cuda, which raises where no card is present).
 """
 
 import ast
+import functools
 import pathlib
 
 import numpy as np
@@ -23,6 +24,7 @@ import jax.numpy as jnp
 from coconut_tpu.tpu import fp as jfp
 from coconut_tpu.tpu import limbs as jlimbs
 from coconut_tpu.tpu import pallas_fp
+from coconut_tpu_torch import bench_plain
 from coconut_tpu_torch.gpu import cuda_fp, fp, limbs
 from coconut_tpu_torch.gpu.backend import TorchBackend, resolve_device
 from coconut_tpu_torch.ops.fields import P
@@ -81,6 +83,17 @@ def _jax_mul(a, b):
     return np.asarray(jfp.mul(jnp.asarray(a), jnp.asarray(b)))
 
 
+@functools.lru_cache(maxsize=None)
+def _crossover_cases():
+    """(a, b, the XLA path's a*b) at 1, 7, 24, 25, 64 and 65 lanes, the
+    adversarial rows among them; the reference runs once, on all of them."""
+    adv, widths = _adversarial(), (1, 7, 24, 25, 64, 65)
+    a = [np.concatenate([adv, _lazy(n)])[-n:] for n in widths]
+    b = [np.concatenate([_lazy(n), adv])[:n] for n in widths]
+    want = np.split(_jax_mul(np.concatenate(a), np.concatenate(b)), np.cumsum(widths)[:-1])
+    return list(zip(a, b, want))
+
+
 class TestMul:
     def test_matches_xla_path_random_lazy(self):
         a, b = _lazy(96), _lazy(96)
@@ -104,6 +117,16 @@ class TestMul:
             pallas_fp.mul(jnp.asarray(a), jnp.asarray(b), interpret=True)
         )
         np.testing.assert_array_equal(_port_mul(a, b), want)
+
+    @pytest.mark.parametrize("form", sorted(bench_plain.FORMS))
+    def test_every_plain_form_matches_xla_path_across_its_crossovers(self, form):
+        """float64 without the narrow forms is the card's plain path; the
+        CPU's float32 forms must give the same bits at widths on both
+        sides of OUTER_LANES and CARRY_MATRIX_LANES."""
+        for a, b, want in _crossover_cases():
+            with bench_plain.plain_form(*bench_plain.FORMS[form]):
+                got = _port_mul(a, b)
+            np.testing.assert_array_equal(got, want)
 
     def test_broadcast_and_stack(self):
         a = _lazy(12).reshape(3, 4, NLIMBS)

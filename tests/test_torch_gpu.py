@@ -6,8 +6,10 @@ threshold issuance round, the online verify service, the issuance
 service (a mint at B = 16, a crashed authority) and the ProtocolEngine
 (8 full sessions over DKG keys, a refresh between two mints) on `cuda`
 against the same paths on the CPU or the host spec, the kernel's counts
-under threads, and the nullifier set's membership probe on `cuda` against
-its plain version on CPU tensors over a 2^16-row table.
+under threads, the nullifier set's membership probe on `cuda` against
+its plain version on CPU tensors over a 2^16-row table, and a short
+population of petition / e-cash / access workflows on a ProtocolEngine on
+`cuda` with an ElasticController in the loop.
 
 Marked `gpu`; each test skips where no CUDA card is present. On a machine
 with one: `python -m pytest tests/test_torch_gpu.py -q`. Tolerance: exact
@@ -463,6 +465,53 @@ def test_protocol_engine_session_round_across_a_refresh_on_cuda(cuda):
     assert cuda_fp.PLAIN_CALLS == plain and cuda_fp.LAUNCHES > launches
     assert metrics.get_count("keylife_refreshes") == 1
     assert mgr.registry.pin_count(1) == 0
+
+
+def test_population_on_cuda_through_the_elastic_controller(cuda, tmp_path):
+    """A 3 s diurnal population (petitions, e-cash with double spends,
+    access sessions) on a ProtocolEngine with two executors, a StateStore
+    and an ElasticController on `cuda`: every started workflow reaches one
+    terminal, none failed or cancelled, rejections only double_spend; the
+    kernel launched and no plain call."""
+    from coconut_tpu_torch import metrics
+    from coconut_tpu_torch.engine import ElasticController, ElasticPolicy, ProtocolEngine
+    from coconut_tpu_torch.scenarios import (
+        TERMINAL_OUTCOMES, AccessScenario, DiurnalCurve, EcashScenario, PetitionScenario,
+        Population, PopulationDriver, RateSchedule, ScenarioReport,
+    )
+    from coconut_tpu_torch.state import StateStore
+
+    params, signers, _, _, _ = entry.issue_fixture(1)
+    store = StateStore(str(tmp_path / "state"), replica_id="gpu-scn")
+    eng = ProtocolEngine(signers, params, entry.ISSUANCE_THRESHOLD,
+                         count_hidden=entry.ISSUANCE_HIDDEN,
+                         revealed_msg_indices=list(entry.SHOW_REVEALED), backend="torch",
+                         devices=2, max_batch=64, max_wait_ms=50.0, pad_partial=False,
+                         state_store=store)
+    assert eng.backend.device.type == "cuda" and eng.nullifiers.device.type == "cuda"
+    metrics.reset()
+    plain, launches = cuda_fp.PLAIN_CALLS, cuda_fp.LAUNCHES
+    try:
+        eng.start()
+        mix = [(2.0, PetitionScenario(eng, params, campaigns=2, resign_p=0.5, deadline_s=60.0)),
+               (2.0, EcashScenario(eng, params, double_spend_p=0.5, deadline_s=60.0)),
+               (1.0, AccessScenario(eng, params, session_range=(2, 2), deadline_s=60.0))]
+        out = PopulationDriver(
+            Population(1024, seed=0x19), mix, RateSchedule(DiurnalCurve(1.0, 2.0, 3.0)), 3.0,
+            seed=0x19, report=ScenarioReport(slo_s=10.0), engine=eng,
+            elastic=ElasticController(eng, ElasticPolicy(min_executors=1)),
+            drain_timeout_s=60.0,
+        ).run()
+    finally:
+        assert eng.drain(timeout=120.0)
+        store.close()
+    totals = out["totals"]
+    assert totals["failed"] == 0 and totals["cancelled"] == 0
+    assert {label for per in out["rejections"].values() for label in per} <= {"double_spend"}
+    counters = metrics.snapshot()["counters"]
+    assert counters["scenario_started"] == sum(
+        counters.get("scenario_%s" % o, 0) for o in TERMINAL_OUTCOMES) > 0
+    assert cuda_fp.PLAIN_CALLS == plain and cuda_fp.LAUNCHES > launches
 
 
 def test_membership_probe_on_cuda_equals_plain_version(cuda, tmp_path):
