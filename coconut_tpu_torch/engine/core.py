@@ -7,9 +7,8 @@ span names. The engine owns:
                bound); brownout shedding applies the program's SLO class
                before the lane check.
   THE POOL     Executor workers (engine/executor.py), one per device,
-               plus the optional mesh-sharded lane (which the port cannot
-               build yet: its services refuse `mesh=`, but the engine
-               stays mesh-agnostic). One pool serves every registered
+               plus the optional mesh-sharded lane (CredentialService's
+               `mesh=`, over gpu/shard.py). One pool serves every registered
                pool program: executors carry a per-program dispatch
                registry (`_seed_pool_program`), and the placer routes
                each coalesced batch by its program's rules; new (program,

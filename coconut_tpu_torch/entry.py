@@ -268,3 +268,64 @@ def entry(batch=64, device=None):
     operands = be.encode_verify_batch(sigs, msgs_list, vk, params)
     fn = functools.partial(fused_verify, params.ctx.name == "G1")
     return fn, operands
+
+
+def dryrun_multichip(n_devices, devices=None):
+    """Shard the verify programs over an n-device (dp, tp) mesh and run one
+    step each on small shapes, checking the bits against the host spec, as
+    `__graft_entry__.dryrun_multichip` does for the JAX package: phase 1 the
+    per-credential program on (dp = n/2, tp = 2) (tp = 1 for odd n), one
+    lane a dp row with one forged; phase 2 the grouped program on (dp = n,
+    tp = 1), accepting the honest batch and rejecting the forged one.
+
+    `devices` defaults to the first n CUDA cards; pass one card n times
+    (`[torch.device("cuda")] * n`) for logical shards on it. Prints a
+    flushed progress line a phase."""
+    import time
+
+    import torch
+
+    from .gpu.backend import TorchBackend
+    from .gpu.shard import batch_verify_grouped_sharded, batch_verify_sharded, default_mesh
+    from .ps import ps_verify
+
+    t_start = time.time()
+
+    def progress(msg):
+        print("[dryrun_multichip +%.1fs] %s" % (time.time() - t_start, msg), flush=True)
+
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = list(devices)[:n_devices]
+    ntp = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
+    mesh = default_mesh(ndp=n_devices // ntp, ntp=ntp, devices=devices)
+    progress("devices=%d mesh=(dp=%d, tp=%d), building fixture"
+             % (n_devices, n_devices // ntp, ntp))
+
+    params, _, vk, sigs, msgs_list = fixture(n_devices)
+    good_sigs = list(sigs)
+    sigs = list(sigs)
+    sigs[1] = Signature(sigs[1].sigma_1, params.ctx.sig.mul(sigs[1].sigma_2, 2))
+
+    be = TorchBackend(device=devices[0])
+    p1 = n_devices // ntp  # one lane a dp row
+    progress("phase 1/2: dp+tp sharded per-credential verify (batch=%d)" % p1)
+    bits = batch_verify_sharded(be, sigs[:p1], msgs_list[:p1], vk, params, mesh)
+    want = [ps_verify(s, m, vk, params) for s, m in zip(sigs[:p1], msgs_list[:p1])]
+    if bits != want:
+        raise AssertionError("sharded bits %s, the spec's %s" % (bits, want))
+    progress("phase 1/2 ok: bits match the spec path (incl. one forged)")
+
+    gmesh = default_mesh(ndp=n_devices, ntp=1, devices=devices)
+    progress("phase 2/2: dp-sharded grouped verify (dp=%d)" % n_devices)
+    ok = batch_verify_grouped_sharded(
+        be, good_sigs, msgs_list, vk, params, gmesh, pad_batch_to=n_devices
+    )
+    if ok is not True:
+        raise AssertionError("sharded grouped verify rejected a valid batch")
+    bad = batch_verify_grouped_sharded(
+        be, sigs, msgs_list, vk, params, gmesh, pad_batch_to=n_devices
+    )
+    if bad is not False:
+        raise AssertionError("sharded grouped verify accepted a forged batch")
+    progress("phase 2/2 ok: grouped accept+reject both correct")

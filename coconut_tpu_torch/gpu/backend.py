@@ -881,19 +881,27 @@ class TorchBackend:
 
     # -- fused hot path ------------------------------------------------------
 
-    def encode_verify_batch(self, sigs, messages_list, vk, params):
+    def encode_verify_batch(self, sigs, messages_list, vk, params, pad_bases_to=None):
         """Host-side encoding of a verify batch into the fused operand tuple
         (wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2), under either
-        signature assignment."""
+        signature assignment.
+
+        pad_bases_to: pad the shared-base axis with identity bases and zero
+        scalars up to this length (the sharded path needs the base count
+        divisible by the mesh's tp extent). The padded tables are cached
+        apart from the unpadded ones."""
         is_g1 = params.ctx.name == "G1"
+        npad = max(0, (pad_bases_to or 0) - 1 - len(vk.Y_tilde))
 
         def build():
-            bases = [vk.X_tilde] + list(vk.Y_tilde)
+            bases = [vk.X_tilde] + list(vk.Y_tilde) + [None] * npad
             return (self._comb_tables(is_g1, bases),) + self._encode_gt(params)
 
-        wtables, gtx, gty = self._static_operands("verify", vk, params, None, build)
+        wtables, gtx, gty = self._static_operands(
+            "verify", vk, params, pad_bases_to, build
+        )
         mag, sgn = self._comb_digits(
-            [[1] + [m % R for m in msgs] for msgs in messages_list]
+            [[1] + [m % R for m in msgs] + [0] * npad for msgs in messages_list]
         )
         s1, s2n, inf1, inf2 = self._encode_sigs(
             params, [s.sigma_1 for s in sigs], [s.sigma_2 for s in sigs]
@@ -1279,10 +1287,12 @@ class TorchBackend:
                     "message vector length %d != msg_count %d" % (len(msgs), q)
                 )
 
-    def encode_grouped_batch(self, sigs, messages_list, vk, params):
+    def encode_grouped_batch(self, sigs, messages_list, vk, params, pad_batch_to=None):
         """Host-side encoding of a grouped verify batch into the
         fused_verify_grouped operand tuple (everything after sig_is_g1):
-        pads the batch to a power of two with clones of lane 0, draws the
+        pads the batch to a power of two (at least `pad_batch_to` if given:
+        the sharded path needs it divisible by the mesh's dp extent) with
+        clones of lane 0, draws the
         combiners r_i from the CSPRNG (`secrets`, as the reference does:
         they are the check's soundness), builds the scalar rows r_i and
         r_i m_ij mod R and recodes them on the signed 6-bit / 43-window
@@ -1291,6 +1301,9 @@ class TorchBackend:
         B = len(sigs)
         q = len(vk.Y_tilde)
         Bp = _pow2_lanes(B)
+        if pad_batch_to is not None:
+            while Bp < pad_batch_to:
+                Bp *= 2
         pad = Bp - B
         sigs = list(sigs) + [sigs[0]] * pad
         messages_list = list(messages_list) + [messages_list[0]] * pad
@@ -1347,6 +1360,24 @@ class TorchBackend:
         shared-point MSMs over the signature group. A forged credential
         passes with probability <= 2^-128."""
         return self.batch_verify_grouped_async(sigs, messages_list, vk, params)()
+
+    # -- over a device mesh --------------------------------------------------
+
+    def batch_verify_sharded(self, sigs, messages_list, vk, params, mesh, **kw):
+        """Per-credential verify with the credentials split over the mesh's
+        dp axis and the comb MSM's bases over its tp axis (gpu/shard.py)."""
+        from . import shard
+
+        return shard.batch_verify_sharded(self, sigs, messages_list, vk, params, mesh, **kw)
+
+    def batch_verify_grouped_sharded(self, sigs, messages_list, vk, params, mesh, **kw):
+        """The grouped one-bool verify with the credentials split over the
+        mesh's dp axis and the accumulators combined (gpu/shard.py)."""
+        from . import shard
+
+        return shard.batch_verify_grouped_sharded(
+            self, sigs, messages_list, vk, params, mesh, **kw
+        )
 
     # -- generic pairing product --------------------------------------------
 

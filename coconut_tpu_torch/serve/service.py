@@ -27,7 +27,7 @@ demux -> future resolves. Metrics: "serve_latency_s", "serve_dev*",
 Differences from the reference, by the port's rules: `backend=None` is a
 TorchBackend on `cuda` (raises without a card; the reference's None is its
 host spec backend), `devices` is an int or a list of `torch.device`, and
-`mesh=` raises ValueError until sharding is ported. `CredentialService`
+`mesh=` takes a gpu/shard.py Mesh. `CredentialService`
 also takes `keychain=` (a keylife.EpochRegistry), which the reference's
 passes to its VerifyProgram only through ProtocolEngine: credentials then
 verify under their mint epoch's verkey, and `submit` refuses an unknown or
@@ -39,12 +39,7 @@ import time
 from ..engine.core import ExecutionEngine, _next_pow2
 from ..engine.program import Program
 from ..retry import RetryPolicy
-from ..stream import (
-    _dispatchers,
-    _fallback_dispatcher,
-    _make_bisector,
-    _refuse_mesh,
-)
+from ..stream import _dispatchers, _fallback_dispatcher, _make_bisector
 from .batcher import demux, fail_all, pad_batch
 
 
@@ -257,8 +252,9 @@ class CredentialService(ExecutionEngine):
     worker-thread parallelism without placement), or a list of
     `torch.device` (one executor pinned to each card through
     stream._pin_to_device; one backend serves them all, its caches keyed
-    by card). `mesh` (the reference's dp-sharded lane) raises ValueError:
-    sharding is not ported yet.
+    by card). `mesh` (a gpu/shard.py Mesh) adds the sharded executor: the
+    engine places bulk batches of at least `sharded_min_lanes` (default
+    max_batch) on it (stream._dispatchers' mesh branch).
 
     Self-healing knobs (serve/health.py): `health_policy` configures the
     per-executor circuit breaker, `watchdog` the hung-dispatch deadline
@@ -303,8 +299,6 @@ class CredentialService(ExecutionEngine):
         from ..backend import get_backend
         from ..errors import TransientBackendError
 
-        if mesh is not None:
-            _refuse_mesh()
         if backend is None or isinstance(backend, str):
             backend = get_backend(backend or "torch")
         if isinstance(fallback_backend, str):
@@ -322,7 +316,7 @@ class CredentialService(ExecutionEngine):
             name="coconut-serve",
             metric_ns="serve",
             clock=clock,
-            mesh=None,
+            mesh=mesh,
             sharded_min_lanes=(
                 max_batch if sharded_min_lanes is None else sharded_min_lanes
             ),
@@ -406,6 +400,18 @@ class CredentialService(ExecutionEngine):
             dispatch, is_async = self._program.make_dispatch(device=dev)
             self._add_executor(device=dev, dispatch=dispatch,
                                is_async=is_async)
+
+        if mesh is not None:
+            pad_to = None
+            if mode == "grouped" and "dp" in mesh.shape:
+                # ONE grouped shape whatever the occupancy: the sharded
+                # encode's own floor (2*ndp) or the service's max batch
+                # rounded to the program's power of two, whichever is larger
+                pad_to = max(2 * mesh.shape["dp"], _next_pow2(max_batch))
+            mesh_dispatch, _, _ = _dispatchers(
+                backend, mode, mesh=mesh, mesh_pad_to=pad_to
+            )
+            self._set_mesh_executor(mesh_dispatch)
 
         self._finalize_pool(max_redispatch)
 

@@ -48,8 +48,8 @@ Fault supervision:
   "dead_letters", "checkpoint_quarantined".
 
 Placement: `device=` pins a dispatch to one card by entering
-`torch.cuda.device`. The mesh (sharded) branch of the reference is not
-ported yet and raises ValueError.
+`torch.cuda.device`; `mesh=` runs the grouped or per-credential mode
+sharded over a gpu/shard.py Mesh instead (the two are exclusive).
 
 The credential source is any callable `batch_index -> (sigs, messages_list)`
 so a long stream never needs to exist in memory at once.
@@ -256,13 +256,6 @@ def _pin_to_device(dispatch, device):
     return pinned
 
 
-def _refuse_mesh():
-    raise ValueError(
-        "mesh (sharded) dispatch is not ported to the PyTorch package yet: "
-        "run on one device, or pass devices= for an executor per card"
-    )
-
-
 def _dispatchers(backend, mode, mesh=None, device=None, mesh_pad_to=None):
     """(dispatch, record, is_async) for the chosen mode. dispatch(sigs,
     msgs, vk, params) -> zero-arg finalizer; record(state, result,
@@ -270,11 +263,57 @@ def _dispatchers(backend, mode, mesh=None, device=None, mesh_pad_to=None):
     pipelining such a backend would only delay checkpoints, never overlap
     work, so verify_stream settles each batch immediately.
 
-    mesh: the reference's dp-sharded branch; not ported yet, so a mesh
-    raises ValueError (mesh_pad_to belongs to it).
-    device: pin single-device dispatch to one card (_pin_to_device)."""
+    mesh: run the grouped or per-credential mode sharded over a
+    gpu/shard.py Mesh (config 5 over several devices: the batch is split
+    across the mesh AND host encode pipelines under device execution).
+    device: pin single-device dispatch to one card (_pin_to_device;
+    mutually exclusive with mesh — a sharded program owns its placement).
+    mesh_pad_to: fixed grouped-mode batch pad on the mesh path, so a
+    serving workload with varying coalesced sizes keeps ONE program
+    shape."""
     if mesh is not None:
-        _refuse_mesh()
+        if device is not None:
+            raise ValueError(
+                "mesh and device are mutually exclusive: a sharded "
+                "program spans the mesh, it cannot also pin to one device"
+            )
+        if mode not in ("grouped", "per_credential"):
+            raise ValueError(
+                "mesh streaming supports mode='grouped' or "
+                "'per_credential' (got %r)" % (mode,)
+            )
+        needed = (
+            "encode_verify_batch"
+            if mode == "per_credential"
+            else "encode_grouped_batch"
+        )
+        if not hasattr(backend, needed):
+            raise ValueError(
+                "backend %r cannot shard over a mesh (no %s); "
+                "use the torch backend" % (backend, needed)
+            )
+        from .gpu import shard as _shard
+
+        # check the mesh's axes up front with a clear error, not a bare
+        # KeyError from mesh.shape['tp'] on the first batch
+        if mode == "per_credential":
+            _shard.require_axes(mesh, "dp", "tp")
+
+            def dispatch(s, m, vk, params):
+                return _shard.batch_verify_sharded_async(
+                    backend, s, m, vk, params, mesh
+                )
+
+            return dispatch, _record_percred, True
+
+        _shard.require_axes(mesh, "dp")
+
+        def dispatch(s, m, vk, params):
+            return _shard.batch_verify_grouped_sharded_async(
+                backend, s, m, vk, params, mesh, pad_batch_to=mesh_pad_to
+            )
+
+        return dispatch, _record_grouped, True
     if mode == "per_credential":
         async_fn = getattr(backend, "batch_verify_async", None)
         if async_fn is None:
@@ -586,8 +625,8 @@ def verify_stream(
     dispatch alone). Checkpoint-lag and delivery semantics are unchanged:
     the worker only ENCODES ahead; settle order, retry accounting, and
     checkpoint writes stay on the calling thread, so a crash still re-runs
-    at most `pipeline_depth` batches. `mesh` (the reference's sharded
-    grouped mode) is not ported yet and raises ValueError.
+    at most `pipeline_depth` batches. `mesh` shards the grouped or
+    per-credential mode over a gpu/shard.py Mesh.
 
     backend: an instance or a registry name; None is a TorchBackend on
     `cuda` (raises without a card), as for every entry point of the
@@ -625,11 +664,9 @@ def verify_stream(
     from .backend import get_backend
     from .retry import RetryPolicy, call_with_retry, note_attempt
 
-    if mesh is not None:
-        _refuse_mesh()
     if backend is None or isinstance(backend, str):
         backend = get_backend(backend or "torch")
-    dispatch, record, is_async = _dispatchers(backend, mode)
+    dispatch, record, is_async = _dispatchers(backend, mode, mesh=mesh)
     pipeline = pipeline and is_async  # sync backends: settle immediately
     if pipeline_depth < 1:
         raise ValueError("pipeline_depth must be >= 1")

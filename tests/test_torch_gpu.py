@@ -539,3 +539,21 @@ def test_membership_probe_on_cuda_equals_plain_version(cuda, tmp_path):
     assert guard.commit(spent[:4096], epochs=[1] * 4096) == [True] * 4096
     assert guard.probe(queries[:8] + spent[4096:4104], epochs=[1] * 16) == [True] * 8 + [False] * 8
     store.close()
+
+
+def test_sharded_verify_on_logical_shards_of_one_card(cuda):
+    """Per-credential verify on [cuda:0] * 4 as a (2, 2) mesh at B = 8 (one
+    lane in 2 forged): the bits of the unsharded TorchBackend, with the
+    kernel launched and never the plain version; then the port's
+    dryrun_multichip on the same four logical shards."""
+    from coconut_tpu_torch.gpu import shard
+
+    params, _, vk, sigs, msgs = entry.fixture(8)
+    sigs, msgs, expect = entry.forge(params, sigs, msgs, every=2)
+    be = TorchBackend()
+    mesh = shard.default_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4)
+    plain, launches = cuda_fp.PLAIN_CALLS, cuda_fp.LAUNCHES
+    assert shard.batch_verify_sharded(be, sigs, msgs, vk, params, mesh) == expect
+    assert cuda_fp.PLAIN_CALLS == plain and cuda_fp.LAUNCHES > launches
+    assert be.batch_verify(sigs, msgs, vk, params) == expect
+    entry.dryrun_multichip(4, devices=[torch.device("cuda", 0)] * 4)

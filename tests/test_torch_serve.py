@@ -467,9 +467,15 @@ def test_slice_service_on_torch_cpu_matches_the_spec():
         metrics.reset()
 
 
-def test_default_backend_is_torch_on_cuda_and_mesh_is_refused():
+def test_default_backend_is_torch_on_cuda_and_a_mesh_is_accepted():
+    """backend=None is a TorchBackend on cuda (raises without a card); a
+    mesh adds the sharded executor, and a mesh without its tp axis raises
+    the reference's ValueError, word for word."""
     import torch
 
+    from coconut_tpu.tpu import shard as ref_shard
+    from coconut_tpu_torch.gpu.backend import TorchBackend
+    from coconut_tpu_torch.gpu.shard import default_mesh
     from coconut_tpu_torch.serve import CredentialService
 
     if torch.cuda.is_available():
@@ -478,8 +484,17 @@ def test_default_backend_is_torch_on_cuda_and_mesh_is_refused():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             CredentialService(None, None, None)
-    with pytest.raises(ValueError, match="not ported"):
-        CredentialService(StubPerCred(), None, None, mesh=object())
+    be = TorchBackend(device="cpu")
+    mesh = default_mesh(2, 1, devices=[torch.device("cpu")] * 2)
+    svc = CredentialService(be, None, None, mesh=mesh, watchdog_interval_s=None)
+    assert [ex.label for ex in svc._all_executors()] == ["0", "mesh"]
+    assert svc.mesh is mesh
+    no_tp = SimpleNamespace(shape={"dp": 2})
+    with pytest.raises(ValueError) as want:
+        ref_shard.require_axes(no_tp, "dp", "tp")
+    with pytest.raises(ValueError) as got:
+        CredentialService(be, None, None, mesh=no_tp)
+    assert str(got.value) == str(want.value)
 
 
 # --- retry and errors ---------------------------------------------------------

@@ -206,13 +206,33 @@ def test_checkpoint_schema_and_resume_pinned(tmp_path):
     assert [(r["batch"], r["credential"]) for r in got["dead_letters"]] == [(1, 2), (3, 0)]
 
 
-def test_stream_refuses_a_mesh_and_defaults_to_cuda():
+def test_stream_accepts_a_mesh_and_defaults_to_cuda():
+    """A mesh routes both mesh modes through gpu/shard.py (the dispatch is
+    asynchronous); a mesh without its tp axis raises the reference's
+    ValueError, word for word, before any batch; backend=None is a
+    TorchBackend on cuda (raises without a card)."""
     import torch
 
-    from coconut_tpu_torch.stream import verify_stream
+    from coconut_tpu.tpu import shard as ref_shard
+    from coconut_tpu_torch.gpu.backend import TorchBackend
+    from coconut_tpu_torch.gpu.shard import default_mesh
+    from coconut_tpu_torch.stream import _dispatchers, verify_stream
 
-    with pytest.raises(ValueError, match="not ported"):
-        verify_stream(_source(), 1, None, None, StubSync(), mesh=object())
+    be = TorchBackend(device="cpu")
+    mesh = default_mesh(2, 2, devices=[torch.device("cpu")] * 4)
+    for mode in ("per_credential", "grouped"):
+        _, _, is_async = _dispatchers(be, mode, mesh=mesh)
+        assert is_async
+    no_tp = SimpleNamespace(shape={"dp": 2})
+    with pytest.raises(ValueError) as want:
+        ref_shard.require_axes(no_tp, "dp", "tp")
+
+    def never(i):
+        raise AssertionError("no batch is fetched before the mesh is checked")
+
+    with pytest.raises(ValueError) as got:
+        verify_stream(never, 1, None, None, be, mesh=no_tp)
+    assert str(got.value) == str(want.value)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             verify_stream(_source(), 1, None, None, None)
