@@ -292,6 +292,20 @@ Phases, one line each (plus the kernel table and the result line):
      serve_placed_sharded 2), every future its own lane's verdict. For
      (a)-(d): the warm sharded wall beside the unsharded one at the same
      B, their ratio, and the kernel's launches a call of each.
+ 24. native: the native core (native/ccbls.cpp) on the card's machine.
+     (a) native.load() builds it with g++ into build/ and passes its
+     selftest (a failed build fails the phase); (b) the main path's 1,024
+     honest credentials with lanes 5 (sigma_2 doubled), 511 (a message
+     bumped) and 1022 (identity sigma_1) forged, through
+     ps.batch_verify(backend="torch") on cuda and backend="cpp": equal
+     bits, False at exactly those lanes; (c) issuance (config 4, G1,
+     B = 1024): batch_prepare_blind_sign on a cuda TorchBackend (device
+     hash), whose 1,024 generators, and the device hash of the same
+     inputs, must equal native.hash_to_g1_batch's; batch_blind_sign on the
+     card and on get_backend("cpp_ct") must give the same blind signature
+     for every request. Prints the card's and the host's rates (the host
+     CPU named), the kernel's launches and the phase's seconds (its budget
+     is 75 s).
 
 Each path's first call runs with the kernel's counts set to 0 just before
 it and read just after; the kernel table's `launches` is their sum, and
@@ -301,6 +315,7 @@ its two verifies'; issue: the round's four stages'; issue_g2: the same;
 bucketed: its three MSMs'; serve, issue_service, keylife_session,
 ct_probe, nullifier, gateway, scenarios and shard: every run of the
 phase, counted from its start to its end, with no plain call allowed;
+native: its card verify, prepare, device hash and blind sign;
 scenarios adds the successor process's launches).
 
 Any failed check raises (non-zero exit). After the phases, a `done` line
@@ -316,6 +331,7 @@ import itertools
 import json
 import os
 import pickle
+import platform
 import random
 import secrets
 import shutil
@@ -330,9 +346,10 @@ import time
 import numpy as np
 import torch
 
-from coconut_tpu_torch import entry, metrics, pok_sig, ps, sss
+from coconut_tpu_torch import entry, metrics, native, pok_sig, ps, sss
 from coconut_tpu_torch import bench_fp_mul as kb
 from coconut_tpu_torch import signature as sig
+from coconut_tpu_torch.backend import get_backend
 from coconut_tpu_torch.gpu import cuda_fp, shard
 from coconut_tpu_torch.gpu.backend import TorchBackend
 from coconut_tpu_torch.gpu.limbs import MONT_R
@@ -3395,6 +3412,108 @@ def shard_phase(card, be, honest, sbe, show_honest):
     return launches
 
 
+# phase native: the lanes forged in the main path's honest batch, one of each
+# kind (a doubled sigma_2, a bumped message, an identity sigma_1)
+NATIVE_FORGED = (5, 511, 1022)
+
+
+def _host_cpu():
+    """The host CPU's model name (lscpu's, else the machine type) and its
+    logical cores."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    name = next((l.split(":", 1)[1].strip() for l in out.splitlines()
+                 if l.startswith("Model name")), platform.machine())
+    return "%s, %d logical cores" % (name, os.cpu_count())
+
+
+def native_phase(card, honest):
+    """The native core on the card's machine: (a) native.load() builds
+    ccbls.cpp with g++ and passes its selftest; (b) the main path's honest
+    batch with NATIVE_FORGED forged through ps.batch_verify on "torch"
+    (cuda) and on "cpp": equal bits, False exactly at the forged lanes;
+    (c) an issuance batch prepared on the card (device hash): its 1,024
+    generators equal native.hash_to_g1_batch's, and batch_blind_sign on
+    the card equals it on "cpp_ct" blind signature for blind signature.
+    Prints the card's and the host's rates and the kernel's launches."""
+    started = time.perf_counter()
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    lib = native.build()
+
+    params, _, vk, sigs, msgs = honest
+    sigs, msgs = list(sigs), [list(m) for m in msgs]
+    a, b, c = NATIVE_FORGED
+    sigs = _forged_sigma_2(params, sigs, a)
+    msgs[b][0] = (msgs[b][0] + 1) % R
+    sigs[c] = type(sigs[c])(None, None)
+    expect = [i not in NATIVE_FORGED for i in range(BATCH)]
+
+    cuda_fp.LAUNCHES = 0
+    cuda_fp.PLAIN_CALLS = 0
+    t0 = time.perf_counter()
+    card_bits = ps.batch_verify(sigs, msgs, vk, params, backend="torch")
+    card_verify_s = time.perf_counter() - t0
+    launches, plain = cuda_fp.LAUNCHES, cuda_fp.PLAIN_CALLS
+    if card_bits != expect:
+        raise AssertionError("native: the card's bits are not the expected verdicts")
+    t0 = time.perf_counter()
+    host_bits = ps.batch_verify(sigs, msgs, vk, params, backend="cpp")
+    host_verify_s = time.perf_counter() - t0
+    if host_bits != card_bits:
+        wrong = [i for i, (x, y) in enumerate(zip(host_bits, card_bits)) if x != y]
+        raise AssertionError("native: cpp and the card differ at lanes %s" % wrong[:16])
+
+    params_i, signers, _, epk, imsgs = entry.issue_fixture(BATCH)
+    ctx = params_i.ctx
+    be = TorchBackend()  # cuda, device hash
+    if not be.device_hash_enabled():
+        raise AssertionError("native: the cuda backend does not hash on its device")
+    cuda_fp.LAUNCHES = 0
+    t0 = time.perf_counter()
+    reqs = [r for r, _ in sig.batch_prepare_blind_sign(
+        imsgs, entry.ISSUANCE_HIDDEN, epk, params_i, backend=be)]
+    card_prepare_s = time.perf_counter() - t0
+    datas = [sig.SignatureRequest.hash_input(r.commitment, r.known_messages, ctx) for r in reqs]
+    t0 = time.perf_counter()
+    card_hs = be.hash_to_g1_batch(datas)
+    card_hash_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_bs = sig.batch_blind_sign(reqs, signers[0].sigkey, params_i, backend=be)
+    card_blind_s = time.perf_counter() - t0
+    launches += cuda_fp.LAUNCHES
+    plain += cuda_fp.PLAIN_CALLS
+    if launches == 0 or plain != 0:
+        raise AssertionError(
+            "native: the card's paths ran %d kernel launches and %d plain calls" % (launches, plain)
+        )
+    t0 = time.perf_counter()
+    host_hs = native.hash_to_g1_batch(datas)
+    host_hash_s = time.perf_counter() - t0
+    if [r.get_h(ctx) for r in reqs] != host_hs or card_hs != host_hs:
+        raise AssertionError("native: a device hash differs from native.hash_to_g1_batch")
+    t0 = time.perf_counter()
+    host_bs = sig.batch_blind_sign(reqs, signers[0].sigkey, params_i, backend=get_backend("cpp_ct"))
+    host_blind_s = time.perf_counter() - t0
+    if [x.to_bytes(ctx) for x in card_bs] != [x.to_bytes(ctx) for x in host_bs]:
+        raise AssertionError("native: cpp_ct blind signatures differ from the card's")
+
+    phase_s = time.perf_counter() - started
+    log(
+        "native", library=lib.name, build_s=build_s, batch=BATCH,
+        forged=list(NATIVE_FORGED), bits_equal=True, rejected=[i for i, x in enumerate(card_bits) if not x],
+        generators_equal=len(host_hs), blind_signatures_equal=len(host_bs),
+        card_verify_s=card_verify_s, card_verifies_per_s=BATCH / card_verify_s,
+        host_verify_s=host_verify_s, host_verifies_per_s=BATCH / host_verify_s,
+        card_prepare_s=card_prepare_s, card_hash_s=card_hash_s, card_hashes_per_s=BATCH / card_hash_s,
+        host_hash_s=host_hash_s, host_hashes_per_s=BATCH / host_hash_s,
+        card_blind_sign_s=card_blind_s, card_blind_signs_per_s=BATCH / card_blind_s,
+        host_ct_blind_sign_s=host_blind_s, host_ct_blind_signs_per_s=BATCH / host_blind_s,
+        launches=launches, plain_calls=plain, phase_s=phase_s, host_cpu=_host_cpu(), card=card,
+    )
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
@@ -3453,6 +3572,7 @@ def main():
     by_path["gateway"] = timed("gateway", gateway_phase(card, vhonest))
     by_path["scenarios"] = timed("scenarios", scenarios_phase(card, session_rate, vhonest, vbe))
     by_path["shard"] = timed("shard", shard_phase(card, vbe, vhonest, sbe, shonest))
+    by_path["native"] = timed("native", native_phase(card, vhonest))
     log("done", seconds=time.perf_counter() - started, phase_seconds=phase_s, card=card)
     kern["launches"] = sum(by_path.values())
     kern["launches_by_path"] = by_path

@@ -21,8 +21,17 @@ layout and names and imports nothing from it:
            Fiat-Shamir, the batch checks and ladders, their combiners, and
            the errors they raise
   backend.py
-           the host spec backend (the services' fallback and bisection
-           oracle) and the backend registry ("torch", "spec")
+           the CurveBackend seam, the host spec backend (the services'
+           fallback and bisection oracle) and the backend registry
+           ("torch", "spec", "cpp", "cpp_ct")
+  native.py
+           the ctypes binding of the native core (native/ccbls.cpp, built
+           with g++ into build/ at first use): CppBackend, its hashes,
+           single MSMs and Shamir / Pedersen / DVSS helpers
+  analysis/
+           the invariant lint suite over the port
+           (python -m coconut_tpu_torch.analysis), its baseline
+           analysis_baseline.json beside this file
   keylife/ the dealerless key lifecycle: online DKG, proactive refresh and
            t/n reshare rounds, the epoch registry and the manager that
            rolls new key sets into live services (host spec)

@@ -1,15 +1,17 @@
-"""The host spec backend, the backend registry and the capability probes
-of the optional asynchronous MSM contracts — the port's copy of
-`PythonBackend` (with the verify surface `CurveBackend` composes over its
-primitives), `register_backend` / `get_backend`, `_async_pair`,
-`async_shared_many_api`, `async_distinct_api` and
+"""The backend seam, the host spec backend, the backend registry and the
+capability probes of the optional asynchronous MSM contracts — the port's
+copy of `CurveBackend` (the verify surface composed over the MSM and
+pairing primitives), `PythonBackend`, `register_backend` / `get_backend`,
+`_async_pair`, `async_shared_many_api`, `async_distinct_api` and
 `async_distinct_plus_offset_api` (`coconut_tpu/backend.py`). Each dispatch
 half is probed together with the wait half that settles its handles, so a
 backend that has only one of them is treated as having neither. The
 issuance batch functions (`signature.py`) pick their schedule from these.
 
 Registry names: "torch" is a `TorchBackend` on `cuda` (raises without a
-card), "spec" (alias "python") the host spec backend.
+card), "spec" (alias "python") the host spec backend, "cpp" and "cpp_ct"
+the native core's `CppBackend` (`native.py`; variable-time and const-time
+MSMs), built at first use.
 """
 
 from . import metrics
@@ -18,37 +20,17 @@ from .ops.curve import g1, g2
 from .ops.fields import R
 
 
-class SpecBackend:
-    """The sequential host spec, row by row on Python ints (the JAX
-    package's PythonBackend): what `backend=ps.SPEC` runs on, the serve
-    layer's fallback and its bisection oracle. It has no asynchronous
-    contract and no device hash. Points are affine tuples (None is the
-    identity), scalars Python ints; every verdict is the spec's."""
+class CurveBackend:
+    """The batched-execution seam: a backend supplies the MSM primitives
+    `msm_g{1,2}_shared` / `msm_g{1,2}_distinct` and
+    `pairing_product_is_one` ((G1, G2) pairs a row), and inherits the
+    verify surface composed over them. Points are the spec's affine tuples
+    (None is the identity), scalars Python ints, and every result is
+    bit-identical to the host spec's."""
 
-    name = "spec"
+    name = "abstract"
 
-    @staticmethod
-    def msm_g1_shared(bases, scalars_batch):
-        return [g1.msm(bases, row) for row in scalars_batch]
-
-    @staticmethod
-    def msm_g2_shared(bases, scalars_batch):
-        return [g2.msm(bases, row) for row in scalars_batch]
-
-    @staticmethod
-    def msm_g1_distinct(points_batch, scalars_batch):
-        return [g1.msm(pts, row) for pts, row in zip(points_batch, scalars_batch)]
-
-    @staticmethod
-    def msm_g2_distinct(points_batch, scalars_batch):
-        return [g2.msm(pts, row) for pts, row in zip(points_batch, scalars_batch)]
-
-    @staticmethod
-    def pairing_product_is_one(pairs_batch):
-        """[B] rows of (G1, G2) pairs -> [B] bools: prod e(P, Q) == 1."""
-        return [_pairing.pairing_check(row) for row in pairs_batch]
-
-    # -- composed verify (coconut_tpu/backend.py CurveBackend) ---------------
+    # -- composed verify ----------------------------------------------------
 
     def verify_accumulators(self, vk, messages_list, params):
         """X_tilde * prod Y_j^{m_j} per credential, one shared-base MSM in
@@ -118,6 +100,94 @@ class SpecBackend:
         metrics.count("verify_final_exps", 1)
         return bool(ok)
 
+    def batch_show_verify_combined(
+        self, proofs, vk, params, revealed_msgs_list, challenges, rs=None, epoch=None
+    ):
+        """Combined show verify -> (per-lane Schnorr bits, ONE batch pairing
+        bool): the Schnorr equation stays per lane; the B pairing checks
+        e(sigma'_1i, J_i * X_tilde * prod_rev Y^m) * e(-sigma'_2i, g_tilde)
+        fold under the combiners as in `batch_verify_combined`. Dead lanes
+        (identity sigma') get a zero combiner and fail their own bit. All
+        proofs share one revealed-index set."""
+        metrics.count("verify_batched_checks")
+        B = len(proofs)
+        if B == 0:
+            return [], True
+        ctx = params.ctx
+        oth = ctx.other
+        sig_ops = ctx.sig
+        schnorr = [
+            p.sigma_prime_1 is not None
+            and p.sigma_prime_2 is not None
+            and bool(p.proof_vc.verify(oth, p._bases(vk, params), p.J, c))
+            for p, c in zip(proofs, challenges)
+        ]
+        if rs is None:
+            from .batchverify import derive_combiners, show_transcript
+
+            rs = derive_combiners(
+                show_transcript(proofs, vk, params, revealed_msgs_list, challenges, epoch=epoch),
+                B,
+            )
+        elif len(rs) != B:
+            raise ValueError(
+                "combiner count mismatch: %d exponents, %d lanes" % (len(rs), B)
+            )
+        live_rs = [
+            r if p.sigma_prime_1 is not None and p.sigma_prime_2 is not None else 0
+            for r, p in zip(rs, proofs)
+        ]
+        # acc_i = J_i + X_tilde + sum_rev Y_tilde[j]^{m_j}
+        idx_sets = [sorted(rm.keys()) for rm in revealed_msgs_list]
+        if any(s != idx_sets[0] for s in idx_sets):
+            raise ValueError("combined show batch requires one revealed set")
+        bases = [vk.X_tilde] + [vk.Y_tilde[j] for j in idx_sets[0]]
+        scalars = [[1] + [rm[j] % R for j in idx_sets[0]] for rm in revealed_msgs_list]
+        msm_o = self.msm_g2_shared if ctx.name == "G1" else self.msm_g1_shared
+        accs = [oth.add(a, p.J) for a, p in zip(msm_o(bases, scalars), proofs)]
+        s1r = self._msm_sig_distinct(
+            params, [[p.sigma_prime_1] for p in proofs], [[r] for r in live_rs]
+        )
+        (z,) = self._msm_sig_distinct(
+            params,
+            [[None if p.sigma_prime_2 is None else sig_ops.neg(p.sigma_prime_2) for p in proofs]],
+            [list(live_rs)],
+        )
+        row = list(zip(s1r, accs)) + [(z, params.g_tilde)]
+        pair_ok = self.batch_verify_pairs([row], params)[0]
+        metrics.count("verify_final_exps", 1)
+        return schnorr, bool(pair_ok)
+
+
+class SpecBackend(CurveBackend):
+    """The sequential host spec, row by row on Python ints (the JAX
+    package's PythonBackend): what `backend=ps.SPEC` runs on, the serve
+    layer's fallback and its bisection oracle. It has no asynchronous
+    contract and no device hash."""
+
+    name = "spec"
+
+    @staticmethod
+    def msm_g1_shared(bases, scalars_batch):
+        return [g1.msm(bases, row) for row in scalars_batch]
+
+    @staticmethod
+    def msm_g2_shared(bases, scalars_batch):
+        return [g2.msm(bases, row) for row in scalars_batch]
+
+    @staticmethod
+    def msm_g1_distinct(points_batch, scalars_batch):
+        return [g1.msm(pts, row) for pts, row in zip(points_batch, scalars_batch)]
+
+    @staticmethod
+    def msm_g2_distinct(points_batch, scalars_batch):
+        return [g2.msm(pts, row) for pts, row in zip(points_batch, scalars_batch)]
+
+    @staticmethod
+    def pairing_product_is_one(pairs_batch):
+        """[B] rows of (G1, G2) pairs -> [B] bools: prod e(P, Q) == 1."""
+        return [_pairing.pairing_check(row) for row in pairs_batch]
+
 
 def _async_pair(backend, dispatch_name, wait_name):
     dispatch = getattr(backend, dispatch_name, None)
@@ -161,9 +231,18 @@ def _torch_backend():
     return TorchBackend()
 
 
+def _cpp_backend(ct=False):
+    # lazy: the first CppBackend builds the native library
+    from .native import CppBackend
+
+    return CppBackend(ct=ct)
+
+
 def get_backend(name):
     """Instantiate a backend by registry name: "torch" (a TorchBackend on
-    `cuda`), "spec" or "python" (SpecBackend), or a registered name."""
+    `cuda`), "spec" or "python" (SpecBackend), "cpp" or "cpp_ct"
+    (CppBackend, variable-time or const-time MSMs), or a registered
+    name."""
     factory = _REGISTRY.get(name)
     if factory is None:
         raise ValueError("unknown backend %r" % (name,))
@@ -173,3 +252,5 @@ def get_backend(name):
 register_backend("torch", _torch_backend)
 register_backend("spec", SpecBackend)
 register_backend("python", SpecBackend)
+register_backend("cpp", _cpp_backend)
+register_backend("cpp_ct", lambda: _cpp_backend(ct=True))

@@ -67,6 +67,7 @@ from ..ops.hashing import DST_G1, expand_message_xmd
 from . import curve as cv
 from . import fp
 from . import glv
+from . import limbs
 from . import pairing as pr
 from . import tower as tw
 from .limbs import NLIMBS, fp_encode, fp_encode_raw_batch, fr_digits_signed_np
@@ -630,8 +631,14 @@ def _pack_pts(pts):
     canonical digits (fp.pack_canon48), every leaf of every point packed by
     ONE carry scan. The contract holds for the programs' outputs: G1
     coordinates are fp.mul outputs (|limb| <= 132, |value| < 0.66p), G2
-    ones 2- and 3-term sums of them (|limb| <= 396, |value| < 1.98p)."""
+    ones 2- and 3-term sums of them (|limb| <= 396, |value| < 1.98p).
+    COCONUT_DEBUG_PACK=1 checks the limb bound: each leaf's maximum goes
+    to limbs.pack_debug_record, and limbs.fp_decode_batch raises at the
+    decode of the same readback."""
     leaves = tw.leaves(pts)
+    if os.environ.get("COCONUT_DEBUG_PACK") == "1":
+        for t in leaves:
+            limbs.pack_debug_record(t.abs().max().item())
     rows = [t.reshape(-1, t.shape[-1]) for t in leaves]
     packed = iter(torch.split(fp.pack_canon48(torch.cat(rows)), [r.shape[0] for r in rows]))
     return tw.tree_map(lambda t: next(packed).reshape(t.shape[:-1] + (fp.CANON_BYTES,)), pts)

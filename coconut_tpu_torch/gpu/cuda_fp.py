@@ -107,6 +107,8 @@ def _build_locked():
     BUILD_LOG = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed on %s:\n%s" % (SOURCE, BUILD_LOG))
+    # lint: allow(durability, the nvcc log is diagnostics only; the library
+    # it describes is published below by an atomic rename)
     log.write_text(BUILD_LOG)
     os.replace(tmp, lib)
     return lib

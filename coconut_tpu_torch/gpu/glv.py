@@ -33,6 +33,8 @@ assert (R - 1) // LAMBDA < 1 << HALF_BITS
 
 def decompose(k):
     """k (mod r) -> (k1, k2) with k = k1 + k2 * lambda, both in [0, 2^128)."""
+    # lint: allow(const-time, CONSTTIME.md §1 host caveat - CPython big-int
+    # divmod cost tracks bit length; accepted on the host recode path)
     k = int(k) % R
     return k % LAMBDA, k // LAMBDA
 

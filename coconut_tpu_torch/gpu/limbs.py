@@ -83,6 +83,29 @@ def fp_encode_raw_batch(xs):
     return np.frombuffer(buf, dtype=np.uint8).reshape(len(xs), RAW_BYTES)
 
 
+# COCONUT_DEBUG_PACK=1: backend._pack_pts records the largest limb magnitude
+# of every leaf it packs that breaks fp.pack_canon48's |v| <= 396 contract,
+# and the host decode boundary raises, so a violation surfaces on the very
+# readback it corrupted.
+PACK_DEBUG_VIOLATIONS = []
+
+
+def pack_debug_record(m):
+    """Record a limb-magnitude maximum that exceeds the pack bound."""
+    v = float(m)
+    if v > 396.0:
+        PACK_DEBUG_VIOLATIONS.append(v)
+
+
+def pack_debug_check():
+    """Raise (and drain) if any recorded limb magnitude broke the pack
+    bound; called at the fp_decode_batch entry."""
+    if PACK_DEBUG_VIOLATIONS:
+        worst = max(PACK_DEBUG_VIOLATIONS)
+        del PACK_DEBUG_VIOLATIONS[:]
+        raise AssertionError("_pack_pts limb |v| = %r exceeds the pack bound 396" % worst)
+
+
 def fp_decode_batch(arr):
     """Montgomery device output -> flat list of canonical ints, by dtype:
 
@@ -93,6 +116,7 @@ def fp_decode_batch(arr):
         48-bit chunks in int64 numpy (exact for |limb| <= ~400: a 6-limb
         chunk is < 6 * 400 * 2^40 < 2^52), leaving ~9 Python big-int ops
         an element."""
+    pack_debug_check()  # surface any COCONUT_DEBUG_PACK violation here
     rinv = pow(MONT_R, -1, P)
     a0 = np.asarray(arr)
     if a0.dtype == np.uint8:
@@ -136,6 +160,8 @@ def fr_digits_signed_np(scalars, nwin=52, window=5):
     mag_dtype = np.uint8 if half <= 255 else np.int16
     acc_dtype = np.int16 if window <= 10 else np.int32
     nbytes = (nwin * window + 7) // 8
+    # lint: allow(const-time, CONSTTIME.md §1 host caveat - big-int reduce +
+    # to_bytes cost tracks bit length; accepted on the host recode path)
     buf = b"".join((int(s) % R).to_bytes(nbytes, "little") for s in scalars)
     bits = np.unpackbits(
         np.frombuffer(buf, dtype=np.uint8).reshape(-1, nbytes),
@@ -155,6 +181,8 @@ def fr_digits_signed_np(scalars, nwin=52, window=5):
         c = over.astype(acc_dtype)
         mag[:, nwin - 1 - w] = np.abs(d).astype(mag_dtype)
         neg[:, nwin - 1 - w] = d < 0
+    # lint: allow(const-time, carry is structurally zero for every Fr input -
+    # the branch direction is input-independent)
     if c.any():  # Fr < 2^255: the top window absorbs every carry
         raise ValueError("signed digits overflowed %d windows" % nwin)
     return mag, neg

@@ -7,7 +7,23 @@ The host layers report here:
   stream.py / retry.py / faults.py
       "retries", "fallbacks", "bisections", "dead_letters",
       "checkpoint_quarantined", "prefetch_wait" (timer),
-      "prefetched_batches", "dead_letter_torn_lines", "flight_torn_lines";
+      "prefetched_batches", "dead_letter_torn_lines", "flight_torn_lines",
+      and "rotations" / "rotation_errors" (dead-letter / flight JSONL
+      rotation, obs/flight.rotate_if_needed);
+  ps.py (the batched verify and show checks)
+      "verify_batched_fallbacks" (combined checks that rejected and fell
+      back to the bisection ladder), "verify_bisection_depth" (ladder
+      splits while naming a rejected batch's lanes — depth per incident
+      is the delta across the fallback);
+  issue/ (the issuance service, beside the README's "issue" namespace)
+      "issue_probes" (fan-outs placed on a PROBATION authority, the
+      half-open probe), "issue_sign_skips" (popped signs skipped because
+      the fan-out had already resolved), "issue_mint_failures" (mints
+      that raised, or whose aggregate failed its check — those lanes
+      fail typed);
+  net/gossip.py
+      "gateway_drain_observed" (a beacon or data-path refusal moved a
+      replica into DRAINING);
   serve/ and engine/ (the online verify service)
       "serve_admitted" / "serve_rejected", "serve_batches" /
       "serve_batched_requests", "serve_pad_lanes", "serve_valid" /

@@ -1,9 +1,10 @@
 """BLS12-381 field arithmetic on Python ints — the port's host copy of the
-pure-Python spec (`coconut_tpu/ops/fields.py`): the curve constants, Fr
-arithmetic for secret sharing, Fp and Fp2 arithmetic (square roots and
-signs for the hash to the curves) for the host curve ops, the Fp6/Fp12
-tower and the Frobenius maps of the host spec pairing (`ops/pairing.py`),
-and the Frobenius coefficients the device tower encodes.
+pure-Python spec (`coconut_tpu/ops/fields.py`), whole: the curve
+constants, Fr arithmetic for secret sharing, Fp and Fp2 arithmetic
+(square roots and signs for the hash to the curves) for the host curve
+ops, the Fp6/Fp12 tower and the Frobenius maps of the host spec pairing
+(`ops/pairing.py`), and the Frobenius coefficients the device tower
+encodes.
 
 Representation (identical to the spec, so decoded device results compare
 with it directly):
@@ -28,8 +29,20 @@ assert P == (BLS_X - 1) ** 2 // 3 * R + BLS_X
 # --- Fr (scalar field) -----------------------------------------------------
 
 
+def fr_add(a, b):
+    return (a + b) % R
+
+
+def fr_sub(a, b):
+    return (a - b) % R
+
+
 def fr_mul(a, b):
     return (a * b) % R
+
+
+def fr_neg(a):
+    return (-a) % R
 
 
 def fr_inv(a):
@@ -230,6 +243,10 @@ def fp6_mul_by_v(a):
     return (fp2_mul_xi(a[2]), a[0], a[1])
 
 
+def fp6_mul_fp2(a, s):
+    return (fp2_mul(a[0], s), fp2_mul(a[1], s), fp2_mul(a[2], s))
+
+
 def fp6_inv(a):
     a0, a1, a2 = a
     c0 = fp2_sub(fp2_sq(a0), fp2_mul_xi(fp2_mul(a1, a2)))
@@ -244,7 +261,16 @@ def fp6_inv(a):
 
 # --- Fp12 = Fp6[w]/(w^2 - v) -----------------------------------------------
 
+FP12_ZERO = (FP6_ZERO, FP6_ZERO)
 FP12_ONE = (FP6_ONE, FP6_ZERO)
+
+
+def fp12_add(a, b):
+    return (fp6_add(a[0], b[0]), fp6_add(a[1], b[1]))
+
+
+def fp12_sub(a, b):
+    return (fp6_sub(a[0], b[0]), fp6_sub(a[1], b[1]))
 
 
 def fp12_mul(a, b):
@@ -281,6 +307,19 @@ def fp12_inv(a):
     t = fp6_sub(fp6_sq(a0), fp6_mul_by_v(fp6_sq(a1)))
     tinv = fp6_inv(t)
     return (fp6_mul(a0, tinv), fp6_neg(fp6_mul(a1, tinv)))
+
+
+def fp12_pow(a, e):
+    if e < 0:
+        return fp12_pow(fp12_inv(a), -e)
+    result = FP12_ONE
+    base = a
+    while e > 0:
+        if e & 1:
+            result = fp12_mul(result, base)
+        base = fp12_sq(base)
+        e >>= 1
+    return result
 
 
 # --- Frobenius endomorphism on Fp6/Fp12 ------------------------------------

@@ -1,7 +1,11 @@
 """Optimal-ate pairing on BLS12-381 on Python ints — the port's host copy
-of the spec pairing (`coconut_tpu/ops/pairing.py`), cut to what its
-`pairing_check` runs: the inversion-free projective Miller loop, the final
-exponentiation and the pairing-product check.
+of the spec pairing (`coconut_tpu/ops/pairing.py`): the inversion-free
+projective Miller loop (the primary path, the blueprint of the device
+pairing), the final exponentiation, `pairing` and the pairing-product
+check, and the cross-check oracles — the affine Miller loop over Fp12
+through `untwist`, `final_exp_slow` (the direct power) and
+`final_exp_chain` (the x-power chain the device final exponentiation
+follows).
 
 It is the port's sequential oracle: the spec verifiers of `ps.py` and
 `pok_sig.py` (the proof-by-proof path of a batch that mixes revealed-index
@@ -16,13 +20,15 @@ Spec decisions (every backend matches these final GT values):
   - pairing products share one final exponentiation.
 
 Lines are the affine chord/tangent lines scaled by factors in the Fp4
-subfield Fp2·{1, w^3}, which the final exponentiation kills.
+subfield Fp2·{1, w^3}, which the final exponentiation kills. The affine
+loop gives other intermediate Miller values but the same GT values.
 """
 
 from .fields import (
     BLS_X,
     FP2_ONE,
     FP2_ZERO,
+    FP6_ZERO,
     FP12_ONE,
     P,
     R,
@@ -38,10 +44,80 @@ from .fields import (
     fp12_frobenius2,
     fp12_inv,
     fp12_mul,
+    fp12_pow,
     fp12_sq,
+    fp12_sub,
 )
 
+# --- Fp12 embedding and the untwist ------------------------------------------
+
+
+def _embed_fp(a):
+    """Fp -> Fp12."""
+    return (((a % P, 0), FP2_ZERO, FP2_ZERO), FP6_ZERO)
+
+
+def _embed_fp2(c):
+    """Fp2 -> Fp12."""
+    return ((c, FP2_ZERO, FP2_ZERO), FP6_ZERO)
+
+
+# w^2 = v and w^3 = v*w as Fp12 elements; their inverses computed once.
+_W2 = ((FP2_ZERO, (1, 0), FP2_ZERO), FP6_ZERO)
+_W3 = (FP6_ZERO, (FP2_ZERO, (1, 0), FP2_ZERO))
+_W2_INV = fp12_inv(_W2)
+_W3_INV = fp12_inv(_W3)
+
+
+def untwist(q):
+    """Map a G2 point on the twist E'(Fp2) to E(Fp12): (x,y) -> (x/w^2, y/w^3)."""
+    x, y = q
+    return (fp12_mul(_embed_fp2(x), _W2_INV), fp12_mul(_embed_fp2(y), _W3_INV))
+
+
+# --- affine Miller loop (the cross-check oracle) -----------------------------
+
 _X_ABS_BITS = bin(-BLS_X)[2:]
+
+
+def miller_loop(p1, q2):
+    """Miller loop f_{|x|,Q}(P) over Fp12, affine through the untwist, with
+    the end conjugation for x < 0; one Fp12 inversion a step.
+
+    p1: G1 affine (Fp pair) or None; q2: G2 affine (Fp2 pair) or None.
+    Returns an Fp12 element (1 if either input is the identity).
+    """
+    if p1 is None or q2 is None:
+        return FP12_ONE
+    px = _embed_fp(p1[0])
+    py = _embed_fp(p1[1])
+    qx, qy = untwist(q2)
+    tx, ty = qx, qy
+    f = FP12_ONE
+    for bit in _X_ABS_BITS[1:]:
+        # tangent line at T evaluated at P
+        lam = fp12_mul(
+            fp12_mul(fp12_sq(tx), _embed_fp(3)),
+            fp12_inv(fp12_mul(ty, _embed_fp(2))),
+        )
+        line = fp12_sub(fp12_sub(py, ty), fp12_mul(lam, fp12_sub(px, tx)))
+        f = fp12_mul(fp12_sq(f), line)
+        # T <- 2T
+        x3 = fp12_sub(fp12_sq(lam), fp12_mul(tx, _embed_fp(2)))
+        ty = fp12_sub(fp12_mul(lam, fp12_sub(tx, x3)), ty)
+        tx = x3
+        if bit == "1":
+            # chord line through T and Q evaluated at P
+            if tx == qx:
+                raise ValueError("degenerate Miller addition step (T == +-Q)")
+            lam = fp12_mul(fp12_sub(ty, qy), fp12_inv(fp12_sub(tx, qx)))
+            line = fp12_sub(fp12_sub(py, qy), fp12_mul(lam, fp12_sub(px, qx)))
+            f = fp12_mul(f, line)
+            x3 = fp12_sub(fp12_sub(fp12_sq(lam), tx), qx)
+            ty = fp12_sub(fp12_mul(lam, fp12_sub(tx, x3)), ty)
+            tx = x3
+    # x < 0: conjugate (the inverse up to factors the final exponentiation kills)
+    return fp12_conj(f)
 
 
 # --- projective Miller loop -------------------------------------------------
@@ -159,7 +235,45 @@ def final_exp(f):
     return fp12_mul(fp12_mul(r0, r1), fp12_mul(r2, r3))
 
 
+def final_exp_slow(f):
+    """The direct power — the cross-check oracle of final_exp."""
+    return fp12_pow(f, 3 * ((P**12 - 1) // R))
+
+
+# The hard part also factors as an x-power chain (five exponentiations by
+# the 64-bit |BLS_X| instead of four multi-hundred-bit exponents):
+# 3·(p^4 - p^2 + 1)/r = (x-1)^2·(x+p)·(x^2 + p^2 - 1) + 3. Exact:
+assert (BLS_X - 1) ** 2 * (BLS_X + P) * (BLS_X**2 + P**2 - 1) + 3 == 3 * (
+    (P**4 - P**2 + 1) // R
+)
+
+
+def final_exp_chain(f):
+    """final_exp by the x-power chain, the structure the device's final
+    exponentiation follows; the same output as `final_exp`."""
+    m = fp12_mul(fp12_conj(f), fp12_inv(f))
+    m = fp12_mul(fp12_frobenius2(m), m)  # cyclotomic now
+    # t0 = m^(x-1); t1 = t0^(x-1) = m^((x-1)^2)
+    t0 = fp12_mul(_cyc_pow(m, BLS_X), fp12_conj(m))
+    t1 = fp12_mul(_cyc_pow(t0, BLS_X), fp12_conj(t0))
+    # t2 = t1^(x+p) = t1^x · pi(t1)
+    t2 = fp12_mul(_cyc_pow(t1, BLS_X), fp12_frobenius(t1))
+    # t3 = t2^(x^2 + p^2 - 1) = (t2^x)^x · pi^2(t2) · conj(t2)
+    t3 = fp12_mul(
+        fp12_mul(_cyc_pow(_cyc_pow(t2, BLS_X), BLS_X), fp12_frobenius2(t2)),
+        fp12_conj(t2),
+    )
+    # · m^3
+    return fp12_mul(t3, fp12_mul(fp12_sq(m), m))
+
+
 # --- pairing API ---------------------------------------------------------------
+
+
+def pairing(p1, q2):
+    """e(P, Q) for P in G1, Q in G2."""
+    return final_exp(miller_loop_projective(p1, q2))
+
 
 
 def multi_pairing(pairs):

@@ -39,6 +39,7 @@ no duplicate revealed index.
 
 import collections
 
+from . import metrics
 from .backend import SpecBackend, get_backend
 from .errors import DeserializationError, PSError, UnsupportedNoOfMessages
 from .gpu.backend import TorchBackend
@@ -129,6 +130,7 @@ def batch_verify(sigs, messages_list, vk, params, backend, mode="exact", epoch=N
     bits = [True] * B
     if B == 0 or combined(0, B):
         return bits
+    metrics.count("verify_batched_fallbacks")
     _bisect(combined, exact, bits, 0, B)
     return bits
 
@@ -137,10 +139,13 @@ def _bisect(combined, exact, bits, lo, hi):
     """The ladder under a rejected range [lo, hi): halves checked with fresh
     combiners, a lone lane a leaf, and a range whose halves both pass
     settled by the exact path. `combined(lo, hi)` returns the range's
-    pairing bool; `bits` is set to False at each culprit."""
+    pairing bool; `bits` is set to False at each culprit. Each range it
+    splits counts one "verify_bisection_depth", as the reference's
+    ladder does."""
     if hi - lo == 1:
         bits[lo] = False
         return
+    metrics.count("verify_bisection_depth")
     mid = (lo + hi) // 2
     left_ok = combined(lo, mid)
     right_ok = combined(mid, hi)
@@ -218,10 +223,11 @@ def batch_show_verify(
             return _combined_show_bits(
                 proofs, vk, params, revealed_msgs_list, challenges, backend, epoch
             )
-        return backend.batch_show_verify(
-            proofs, vk, params, revealed_msgs_list, challenges
-        )
-    if not spec:
+        if hasattr(backend, "batch_show_verify"):
+            return backend.batch_show_verify(
+                proofs, vk, params, revealed_msgs_list, challenges
+            )
+    elif not spec:
         COUNTS["show_verify_ragged_fallback"] += 1
         COUNTS["show_verify_ragged_proofs"] += len(proofs)
     return [
@@ -252,6 +258,7 @@ def _combined_show_bits(proofs, vk, params, revealed_msgs_list, challenges, back
     )
     pair_bits = [True] * B
     if not pair_ok:
+        metrics.count("verify_batched_fallbacks")
         _bisect(combined, exact, pair_bits, 0, B)
     return [bool(s) and bool(p) for s, p in zip(schnorr, pair_bits)]
 

@@ -269,6 +269,13 @@ def _port_files():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    walked = {str(p.relative_to(ROOT)) for p in files}
+    analysis = {
+        "coconut_tpu_torch/analysis/%s.py" % m
+        for m in ("__init__", "__main__", "core", "consttime", "durability", "lockcheck",
+                  "lockorder", "metricsdoc", "schema", "wirecontract")
+    }
+    assert analysis | {"coconut_tpu_torch/native.py"} <= walked
     bad = []
     for path in files:
         for name in _imports(path):

@@ -283,7 +283,7 @@ def test_registry_sequence_matches_the_reference():
     assert counters["keylife_epoch_unknown"] == 2  # the pending epoch and 99
 
 
-def test_registry_store_is_refused_until_state_is_ported(tmp_path):
+def test_registry_store_is_accepted_and_journals_epochs(tmp_path):
     """The port has `state/` now, so `store=` is accepted: a registry over
     a StateStore journals its epochs, and a new registry over the same
     store knows them. A window of 0 still refuses."""

@@ -14,7 +14,10 @@ batch entry points' backend names, against the JAX package's, on the CPU.
   the "%ns_jit_shapes" counters (flat after the warm-up round) must agree.
 - The epoch rollover drill, in the port only, on `backend="python"` (the
   host spec): DKG with a corrupt dealer, sessions, a refresh and a reshare
-  with mints in flight, wrong-epoch and retired-epoch refusals.
+  with mints in flight, wrong-epoch and retired-epoch refusals; then the
+  same drill joined with its RPC and gossip half, as the reference runs
+  it: every request through a GatewayClient over a loopback Replica, the
+  epochs read from beacons, the refusals typed through the envelope.
 - run_session_loadgen on the stub engine: sessions complete, no failed
   show, the reference's report keys.
 
@@ -502,4 +505,147 @@ def test_epoch_rollover_drill():
     assert metrics.get_count("keylife_reshares") == 3
     assert metrics.get_count("keylife_retirements") == 1
     assert metrics.get_count("issue_failed_requests") == 0
+    metrics.reset()
+
+
+class _FakeClock:
+    def __init__(self, t=0.0):
+        self.t = t
+
+    def __call__(self):
+        return self.t
+
+
+def test_epoch_rollover_drill_over_rpc_and_gossip():
+    """The reference's rollover drill whole (tests/test_keylife.py
+    test_epoch_rollover_chaos_drill), over the port's wire: every request
+    goes through GatewayClient(LoopbackTransport(net.rpc.Replica)), and a
+    GossipLoop stepped by hand reads the replica's epochs from its beacons.
+    Fewer credentials a step than the reference's, so it stays inside 20 s
+    alone on the host spec. A wrong epoch verifies False; an unknown epoch
+    and, after window pressure retires epoch 1, a retired one refuse typed
+    through the wire's error envelope, the live epochs named. Every wait
+    has its own timeout; nothing sleeps."""
+    from coconut_tpu_torch import metrics
+    from coconut_tpu_torch.elgamal import elgamal_keygen
+    from coconut_tpu_torch.engine import ProtocolEngine
+    from coconut_tpu_torch.errors import EpochRetiredError, EpochUnknownError
+    from coconut_tpu_torch.keylife import ACTIVE, RETIRING, KeyLifecycleManager
+    from coconut_tpu_torch.net import gossip, rpc, wire
+    from coconut_tpu_torch.params import Params
+    from coconut_tpu_torch.sss import rand_fr
+
+    msgs_n = 2
+    metrics.reset()
+    params = Params.new(msgs_n, b"test-keylife")
+    mgr = KeyLifecycleManager(params, label=b"keylife-drill-rpc", window=3)
+
+    # 1) DKG with a corrupt dealer: named exactly, excluded, round lands
+    ks1 = mgr.bootstrap(3, 5, tamper=_tamper_one(2, 4))
+    assert mgr.last_round.complaints == {2: (4,)}
+    assert ks1.excluded == (2,)
+    eng = ProtocolEngine(
+        [ks1.signer(i) for i in range(1, 6)], params, 3, count_hidden=1,
+        revealed_msg_indices=[1], vk=ks1.vk, backend="python", devices=1,
+        max_batch=4, max_wait_ms=5.0, keychain=mgr.registry,
+        watchdog_interval_s=None,
+    ).start()
+    mgr.attach(eng)
+    codec = wire.WireCodec(params)
+    client = rpc.GatewayClient(rpc.LoopbackTransport(rpc.Replica(eng, codec, replica_id="r0")), codec)
+    directory = gossip.HealthDirectory(["r0"])
+    loop = gossip.GossipLoop(
+        directory, {"r0": lambda: client.poll_beacon(timeout=5.0)}, clock=_FakeClock()
+    )
+    loop.step()
+    assert directory.epochs("r0") == ((1, ACTIVE),)
+    settled = []
+
+    def mint_one():
+        msgs = [rand_fr() for _ in range(msgs_n)]
+        esk, epk = elgamal_keygen(params.ctx.sig, params.g)
+        sig_req, _ = client.submit_prepare(msgs, epk).result(60.0)
+        cred = client.submit_mint(sig_req, msgs, esk).result(60.0)
+        settled.append(cred)
+        return cred, msgs
+
+    def full_show(cred, msgs):
+        proof, chal, rev = client.submit_show_prove(cred, msgs).result(60.0)
+        # the explicit challenge and the stranger-verifier re-hash
+        assert client.submit_show_verify(proof, rev, chal, epoch=cred.epoch).result(60.0) is True
+        assert client.submit_show_verify(proof, rev, None, epoch=cred.epoch).result(60.0) is True
+
+    try:
+        pre = [mint_one() for _ in range(2)]
+        assert all(c.epoch == 1 for c, _ in pre)  # stamped over the wire
+        full_show(*pre[0])
+
+        # 2) proactive refresh with mints in flight on the engine
+        inflight_msgs = [rand_fr() for _ in range(msgs_n)]
+        esk, epk = elgamal_keygen(params.ctx.sig, params.g)
+        sig_req, _ = eng.submit_prepare(inflight_msgs, epk).result(60.0)
+        inflight = [eng.submit_mint(sig_req, inflight_msgs, esk) for _ in range(2)]
+        before = {s.id: (s.sigkey.x, tuple(s.sigkey.y)) for s in ks1.signers}
+        ks1r = mgr.refresh()
+        assert ks1r.vk.to_bytes(params.ctx) == ks1.vk.to_bytes(params.ctx)
+        after = {s.id: (s.sigkey.x, tuple(s.sigkey.y)) for s in ks1r.signers}
+        assert all(before[i] != after[i] for i in before)
+        for f in inflight:
+            cred = f.result(60.0)
+            assert cred.epoch == 1
+            assert client.submit_verify(cred, inflight_msgs).result(60.0) is True
+        mid = [mint_one()]
+        assert mid[0][0].epoch == 1
+
+        # 3) t/n reshare (3-of-5 -> 2-of-5) with mints in flight
+        inflight = [eng.submit_mint(sig_req, inflight_msgs, esk) for _ in range(2)]
+        ks2 = mgr.reshare(threshold=2, total=5)
+        assert ks2.epoch == 2
+        assert ks2.vk.to_bytes(params.ctx) != ks1.vk.to_bytes(params.ctx)
+        for f in inflight:
+            cred = f.result(60.0)
+            assert cred.epoch in (1, 2)
+            assert client.submit_verify(cred, inflight_msgs).result(60.0) is True
+        loop.step()
+        assert directory.epochs("r0") == ((1, RETIRING), (2, ACTIVE))
+
+        # 4) every pre-rollover credential verifies under its mint epoch
+        for cred, msgs in pre + mid:
+            assert client.submit_verify(cred, msgs).result(60.0) is True
+        post = [mint_one()]
+        assert post[0][0].epoch == 2
+        full_show(*post[0])
+
+        # 5) a wrong epoch verifies False, not an error
+        cred, msgs = pre[0]
+        cred.epoch = 2
+        assert client.submit_verify(cred, msgs).result(60.0) is False
+
+        # 6) an unknown epoch refuses typed through the error envelope
+        cred.epoch = 42
+        with pytest.raises(EpochUnknownError):
+            client.submit_verify(cred, msgs).result(60.0)
+        cred.epoch = 1
+
+        # 7) window pressure: two more reshares retire epoch 1, whose
+        # credentials then refuse typed over the wire
+        ks3 = mgr.reshare()
+        ks4 = mgr.reshare()
+        assert (ks3.epoch, ks4.epoch) == (3, 4)
+        loop.step()
+        assert directory.epochs("r0") == ((2, RETIRING), (3, RETIRING), (4, ACTIVE))
+        with pytest.raises(EpochRetiredError) as ei:
+            client.submit_verify(cred, msgs).result(60.0)
+        assert "live epochs: [2, 3, 4]" in str(ei.value)
+        assert client.submit_verify(*post[0]).result(60.0) is True
+    finally:
+        assert eng.drain(timeout=60.0)
+
+    assert len(settled) == 4  # every RPC mint settled exactly once
+    for e in (1, 2, 3, 4):
+        assert mgr.registry.pin_count(e) == 0
+    assert metrics.get_count("gateway_errors") == 0
+    assert metrics.get_count("keylife_refreshes") == 1
+    assert metrics.get_count("keylife_reshares") == 3
+    assert metrics.get_count("keylife_retirements") == 1
     metrics.reset()
