@@ -11,10 +11,10 @@ no-op. Prints one JSON line a repetition with the four walls (s) and
 the card's name and power limit. Needs a card."""
 
 import argparse
-import contextlib
 import json
 import threading
 import time
+import types
 
 import torch
 
@@ -23,6 +23,9 @@ from . import entry
 from . import signature as sig
 from .gpu import cuda_fp, serial
 from .gpu.backend import TorchBackend
+
+# What `serial.serialized` asks of DEVICE_LOCK, doing nothing.
+_NO_LOCK = types.SimpleNamespace(acquire=lambda blocking=True: True, release=lambda: None)
 
 
 def _wall(fn, args_list, threaded):
@@ -60,7 +63,7 @@ def main(argv=None):
     for rep in range(args.reps):
         out = {"rep": rep, "threads": args.threads, "card": card}
         for mode in ("locked", "unlocked"):
-            serial.DEVICE_LOCK = lock if mode == "locked" else contextlib.nullcontext()
+            serial.DEVICE_LOCK = lock if mode == "locked" else _NO_LOCK
             try:
                 out[mode + "_in_turn_s"] = _wall(sign, keys, threaded=False)
                 out[mode + "_threads_s"] = _wall(sign, keys, threaded=True)

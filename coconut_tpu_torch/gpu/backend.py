@@ -50,6 +50,16 @@ the spec).
 
 Every path runs under both signature assignments: ctx "G1" (signatures
 in G1, the default) and "G2" (the roles of the groups swap).
+
+Spans (obs/trace.py; the shared no-op while tracing is off): the verify
+path records `encode` (encode_verify_batch) and `enqueue` (the fused_verify
+call of batch_verify_async), and the programs record their stages:
+`comb_msm` (fused_verify), `affine`, `miller_loop` and `final_exp`
+(verify_tail, so fused_show_verify and gpu/shard.py record them too). A
+span times the host's enqueue of its operators only: none synchronizes or
+reads a device value, so the device may still be running a stage's
+kernels when its span ends. That is the time that sets the pace while the
+device idles.
 """
 
 import os
@@ -61,6 +71,7 @@ import numpy as np
 import torch
 
 from ..batchverify import derive_combiners, show_transcript, verify_transcript
+from ..obs import trace as otrace
 from ..ops.curve import G1_COFACTOR, g1 as _g1, g2 as _g2
 from ..ops.fields import P, R
 from ..ops.hashing import DST_G1, expand_message_xmd
@@ -283,15 +294,21 @@ def verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2):
     The G1 assignment runs the two-pair loop with g_tilde's shared ladder
     (pr.miller_two_pairs_shared_q2). Under G2 the accumulator and g_tilde
     are the G1 side, and the generic pair set [B, 2] runs: P = (acc,
-    g_tilde), Q = (sigma_1, -sigma_2), g_tilde broadcast over the batch."""
+    g_tilde), Q = (sigma_1, -sigma_2), g_tilde broadcast over the batch.
+
+    Stage spans (see the module docstring): `affine`, `miller_loop`,
+    `final_exp` (with the GT = 1 test)."""
     s1, s2n, gtx, gty = _pts_f32((s1, s2n, gtx, gty))
-    ax, ay, ainf = cv.to_affine(_fields(sig_is_g1)[1], acc)
+    with otrace.span("affine"):
+        ax, ay, ainf = cv.to_affine(_fields(sig_is_g1)[1], acc)
     if sig_is_g1:
-        f = pr.miller_two_pairs_shared_q2(
-            s1[0], s1[1], ax, ay, ~inf1 & ~ainf,
-            s2n[0], s2n[1], gtx, gty, ~inf2,
-        )
-        one = tw.fp12_is_one(pr.final_exp(f))
+        with otrace.span("miller_loop"):
+            f = pr.miller_two_pairs_shared_q2(
+                s1[0], s1[1], ax, ay, ~inf1 & ~ainf,
+                s2n[0], s2n[1], gtx, gty, ~inf2,
+            )
+        with otrace.span("final_exp"):
+            one = tw.fp12_is_one(pr.final_exp(f))
         return one & ~inf1
 
     def stack2(a, b):  # [B] lanes and [B] or constant -> [B, 2]
@@ -301,10 +318,13 @@ def verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2):
 
     pinf = torch.stack([ainf, torch.zeros_like(ainf)], dim=-1)
     qinf = torch.stack([inf1, inf2], dim=-1)
-    one = pr.pairing_product_is_one(
-        stack2(ax, gtx), stack2(ay, gty), stack2(s1[0], s2n[0]),
-        stack2(s1[1], s2n[1]), ~(pinf | qinf),
-    )
+    with otrace.span("miller_loop"):
+        f = pr.multi_miller_loop(
+            stack2(ax, gtx), stack2(ay, gty), stack2(s1[0], s2n[0]),
+            stack2(s1[1], s2n[1]), ~(pinf | qinf),
+        )
+    with otrace.span("final_exp"):
+        one = tw.fp12_is_one(pr.final_exp(f))
     return one & ~inf1
 
 
@@ -316,8 +336,10 @@ def fused_verify(sig_is_g1, wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2):
     (cv.build_comb_tables) in the other group; mag/sgn: signed comb digits
     [B, k, nwin]; s1/s2n: sigma_1 and -sigma_2 coordinate pairs [B];
     gtx/gty: g_tilde's affine coordinates; inf1/inf2: identity masks for
-    sigma_1 / sigma_2. Returns bool [B]."""
-    acc = cv.msm_shared_comb(_fields(sig_is_g1)[1], wtables, mag, sgn)
+    sigma_1 / sigma_2. Returns bool [B]. The MSM runs in the stage span
+    `comb_msm`, the rest in verify_tail's."""
+    with otrace.span("comb_msm"):
+        acc = cv.msm_shared_comb(_fields(sig_is_g1)[1], wtables, mag, sgn)
     return verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2)
 
 
@@ -896,24 +918,25 @@ class TorchBackend:
         pad_bases_to: pad the shared-base axis with identity bases and zero
         scalars up to this length (the sharded path needs the base count
         divisible by the mesh's tp extent). The padded tables are cached
-        apart from the unpadded ones."""
-        is_g1 = params.ctx.name == "G1"
-        npad = max(0, (pad_bases_to or 0) - 1 - len(vk.Y_tilde))
+        apart from the unpadded ones. Runs in the span `encode`."""
+        with otrace.span("encode"):
+            is_g1 = params.ctx.name == "G1"
+            npad = max(0, (pad_bases_to or 0) - 1 - len(vk.Y_tilde))
 
-        def build():
-            bases = [vk.X_tilde] + list(vk.Y_tilde) + [None] * npad
-            return (self._comb_tables(is_g1, bases),) + self._encode_gt(params)
+            def build():
+                bases = [vk.X_tilde] + list(vk.Y_tilde) + [None] * npad
+                return (self._comb_tables(is_g1, bases),) + self._encode_gt(params)
 
-        wtables, gtx, gty = self._static_operands(
-            "verify", vk, params, pad_bases_to, build
-        )
-        mag, sgn = self._comb_digits(
-            [[1] + [m % R for m in msgs] + [0] * npad for msgs in messages_list]
-        )
-        s1, s2n, inf1, inf2 = self._encode_sigs(
-            params, [s.sigma_1 for s in sigs], [s.sigma_2 for s in sigs]
-        )
-        return (wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2)
+            wtables, gtx, gty = self._static_operands(
+                "verify", vk, params, pad_bases_to, build
+            )
+            mag, sgn = self._comb_digits(
+                [[1] + [m % R for m in msgs] + [0] * npad for msgs in messages_list]
+            )
+            s1, s2n, inf1, inf2 = self._encode_sigs(
+                params, [s.sigma_1 for s in sigs], [s.sigma_2 for s in sigs]
+            )
+            return (wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2)
 
     def batch_verify_async(self, sigs, messages_list, vk, params):
         """Encode and enqueue the fused verify on the device; returns a
@@ -921,7 +944,8 @@ class TorchBackend:
         if not sigs:
             return lambda: []
         operands = self.encode_verify_batch(sigs, messages_list, vk, params)
-        bits = fused_verify(params.ctx.name == "G1", *operands)
+        with otrace.span("enqueue"):
+            bits = fused_verify(params.ctx.name == "G1", *operands)
         self.final_exps += len(sigs)
         return _finalizer(bits)
 

@@ -12,13 +12,37 @@ coconut_tpu_torch.bench_threads`, PERF.md §6).
 uninterrupted stretch; the threads that wait for it sleep instead of
 contending. It is re-entrant because backend methods call one another.
 Work is only ordered, never moved: every call still runs on its own
-device."""
+device.
+
+A call that finds the lock held by another thread records the wait while
+tracing is on, as a span parented to the caller's active span and named
+after it, `lock_wait.<caller's span>`: `lock_wait.dispatch` on the
+stream's prefetch worker, the wait that holds back the next enqueue, and
+`lock_wait.device` on its settling thread, a readback that has nothing
+else to do meanwhile; plain `lock_wait` with no active span. The span
+carries the waiting thread's name (`thread`). An uncontended call, and
+every call with tracing off, costs one non-blocking acquire and opens no
+span."""
 
 import functools
 import inspect
 import threading
 
+from ..obs import trace as otrace
+
 DEVICE_LOCK = threading.RLock()
+
+
+def _acquire(lock):
+    """Block on `lock`, inside a `lock_wait.<caller's span>` span while
+    tracing is on."""
+    if not otrace.enabled():
+        lock.acquire()
+        return
+    caller = otrace.current()
+    name = "lock_wait" if caller is None else "lock_wait." + caller.name
+    with otrace.span(name, thread=threading.current_thread().name):
+        lock.acquire()
 
 
 def serialized(fn):
@@ -26,8 +50,13 @@ def serialized(fn):
 
     @functools.wraps(fn)
     def run(*args, **kwargs):
-        with DEVICE_LOCK:
+        lock = DEVICE_LOCK
+        if not lock.acquire(blocking=False):
+            _acquire(lock)
+        try:
             return fn(*args, **kwargs)
+        finally:
+            lock.release()
 
     return run
 

@@ -10,7 +10,11 @@ Two serializations of the same ring buffer, for two consumers:
     directly. Spans become complete ("ph": "X") events with microsecond
     ts/dur; span events become instant ("ph": "i") events on the same
     thread track, so a retry or bisection split shows up as a tick inside
-    its span.
+    its span. `ts` is on the Unix epoch (the tracer's `anchor`), the
+    clock of torch.profiler's events. Given the file a profiler's
+    `export_chrome_trace` wrote, `write_chrome` / `export_chrome` write
+    that document with the spans added on its time base (its `ts` count
+    from its `baseTimeNanoseconds`), so one Perfetto view holds both.
 
 Span args carry trace_id/span_id/parent_id, so tooling can rebuild the
 tree: events are
@@ -48,16 +52,31 @@ def read_jsonl(path):
         return [json.loads(line) for line in f if line.strip()]
 
 
+def _anchor(spans):
+    """(clock reading, time_ns) of the tracer that recorded `spans`, from
+    the first Span; (0, 0), the raw clock, for bare records (read back
+    from JSONL, say), whose tracer is not known."""
+    for s in spans:
+        if isinstance(s, _trace.Span):
+            return s._tracer.anchor
+    return (0.0, 0)
+
+
 def chrome_events(spans, pid=1):
     """Chrome trace_events list for finished spans: one "X" (complete)
     event per span plus one "i" (instant) event per span event, sorted by
-    ts so the stream is monotonic. Live (unfinished) spans are skipped —
-    an X event needs a dur."""
+    ts so the stream is monotonic; ts in microseconds on the Unix epoch.
+    Live (unfinished) spans are skipped — an X event needs a dur."""
+    mono0, ns0 = _anchor(spans)
+
+    def us(t):
+        return ns0 / 1e3 + (t - mono0) * _US
+
     events = []
     for rec in span_records(spans):
         if rec["dur"] is None:
             continue
-        ts = rec["t0"] * _US
+        ts = us(rec["t0"])
         events.append(
             {
                 "name": rec["name"],
@@ -80,7 +99,7 @@ def chrome_events(spans, pid=1):
                 {
                     "name": "%s.%s" % (rec["name"], ev.pop("name")),
                     "ph": "i",
-                    "ts": ev.pop("ts") * _US,
+                    "ts": us(ev.pop("ts")),
                     "s": "t",
                     "pid": pid,
                     "tid": rec["tid"],
@@ -91,24 +110,36 @@ def chrome_events(spans, pid=1):
     return events
 
 
-def write_chrome(spans, path, pid=1):
-    """Write the Perfetto-loadable JSON document; returns the event
-    count."""
+def write_chrome(spans, path, pid=1, profiler_trace=None):
+    """Write the Perfetto-loadable JSON document; returns the count of
+    the spans' events. With `profiler_trace`, the path of a
+    torch.profiler `export_chrome_trace` file, the document is that
+    file's with the spans' events added on its `baseTimeNanoseconds`
+    (give `pid=os.getpid()` to put them beside its host threads)."""
+    doc = {"traceEvents": [], "displayTimeUnit": "ms"}
+    if profiler_trace is not None:
+        with open(profiler_trace) as f:
+            doc = json.load(f)
     events = chrome_events(spans, pid=pid)
+    base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
+    for e in events:
+        e["ts"] -= base_us
+    doc["traceEvents"] = doc["traceEvents"] + events
     # lint: allow(durability, on-demand trace export artifact - rewritten
     # whole per call, nothing re-reads it across a crash)
     with open(path, "w") as f:
-        json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
+        json.dump(doc, f)
     return len(events)
 
 
-def export_chrome(path, tracer=None, pid=1):
-    """Dump the (global) tracer's finished-span ring as Chrome trace JSON;
-    returns the event count (0, writing an empty-but-valid document, when
-    tracing is disabled)."""
+def export_chrome(path, tracer=None, pid=1, profiler_trace=None):
+    """Dump the (global) tracer's finished-span ring as Chrome trace JSON,
+    into a copy of `profiler_trace` if given (`write_chrome`); returns the
+    event count (0, writing an empty-but-valid document, when tracing is
+    disabled)."""
     tracer = tracer if tracer is not None else _trace.get_tracer()
     spans = tracer.tail() if tracer is not None else []
-    return write_chrome(spans, path, pid=pid)
+    return write_chrome(spans, path, pid=pid, profiler_trace=profiler_trace)
 
 
 def export_jsonl(path, tracer=None):

@@ -20,7 +20,11 @@ Design constraints, in order:
     forgets: it dumps a request's tree at the moment of failure.
   - INJECTABLE CLOCK: `enable(clock=...)` takes any monotonic callable,
     so span durations are testable exactly with a fake clock and zero
-    real sleeps (the same discipline serve/queue.py uses).
+    real sleeps (the same discipline serve/queue.py uses). Spans are
+    stamped on that clock; the tracer also keeps `anchor`, one reading
+    of it beside `time.time_ns()` taken when it is made, so the Chrome
+    export (obs/export.py) can put a stamp on the Unix epoch, the clock
+    of torch.profiler's events.
   - CROSS-THREAD TREES: propagation inside one thread rides a
     contextvar (`span()` activates, nested spans parent automatically);
     across threads — a request admitted on a client thread, batched on
@@ -37,9 +41,32 @@ Span taxonomy:
                                               batch_trace back)
                         coalesce         pad/assemble the device batch
                         dispatch         host encode + device dispatch
+                          lock_wait.dispatch
+                                         waiting for gpu/serial.DEVICE_LOCK
+                                         (only when another thread holds it)
+                          encode         TorchBackend.encode_verify_batch:
+                                         static operands, comb digits,
+                                         signature encode and upload
+                          enqueue        the fused_verify call: every
+                                         operator launch of the program
+                            comb_msm     the verkey comb MSM
+                            affine       the accumulator's normalization
+                            miller_loop  the pairing's Miller loop
+                            final_exp    final exponentiation + GT == 1
                         device           blocking wait on the device
+                          lock_wait.device
+                                         the readback waiting for the lock
                         demux            verdict bits -> futures
                         bisect           grouped-failure culprit isolation
+
+  The backend's spans (`gpu/backend.py`) time the host's enqueue of a
+  stage's operators, never the device's run of them: no span
+  synchronizes or reads a device value. `affine`, `miller_loop` and
+  `final_exp` come from verify_tail, so the show and sharded programs
+  record them too (under their own parents). A wait for the device lock
+  is named after the span it waits under, `lock_wait.<parent>` (plain
+  `lock_wait` under none), so the prefetch worker's waits and the
+  settle's sum apart; it carries the waiting thread's name (`thread`).
 
   events (timestamped points on a span): retry / attempt_failed /
   fallback (retry.py ladder), split (each bisection halving),
@@ -226,6 +253,7 @@ class Tracer:
     def __init__(self, clock=time.monotonic, ring=DEFAULT_RING):
         self._lock = threading.RLock()
         self._clock = clock
+        self.anchor = (clock(), time.time_ns())
         self._ring = deque(maxlen=max(1, int(ring)))
         self._live = {}  # span_id -> Span
         self._span_ids = itertools.count(1)
