@@ -35,6 +35,7 @@ import time
 
 from .. import metrics
 from ..errors import ServiceBrownoutError, ServiceClosedError
+from ..gpu import serial
 from ..obs import trace as otrace
 from ..retry import call_with_retry, note_attempt
 from ..serve import health as _health
@@ -120,7 +121,9 @@ class ExecutionEngine:
             else _health.HealthPolicy()
         )
         self._watchdog = (
-            watchdog if watchdog is not None else _health.Watchdog(clock=clock)
+            watchdog
+            if watchdog is not None
+            else _health.Watchdog(clock=clock, stall=serial.one_off_seconds)
         )
         self._watchdog_interval_s = watchdog_interval_s
         self._brownout = (

@@ -51,30 +51,45 @@ the spec).
 Every path runs under both signature assignments: ctx "G1" (signatures
 in G1, the default) and "G2" (the roles of the groups swap).
 
+How batch_verify_async issues fused_verify on `cuda`: the program's
+~75,000 operators a batch cost the host far longer to launch one by one
+than the card takes to run them, so a shape key seen a second time is
+captured as four CUDA graphs, one a stage (VerifyGraph), and every later
+batch of that shape replays them. The operands are encoded on the host as
+before and copied into the graphs' static inputs, and the bits out into
+pinned memory, without a host sync; the finalizer waits for its own
+batch's event. The first call of a key runs eagerly, as every program
+does on the CPU and every other program does on `cuda`.
+
 Spans (obs/trace.py; the shared no-op while tracing is off): the verify
-path records `encode` (encode_verify_batch) and `enqueue` (the fused_verify
-call of batch_verify_async), and the programs record their stages:
-`comb_msm` (fused_verify), `affine`, `miller_loop` and `final_exp`
-(verify_tail, so fused_show_verify and gpu/shard.py record them too). A
-span times the host's enqueue of its operators only: none synchronizes or
-reads a device value, so the device may still be running a stage's
-kernels when its span ends. That is the time that sets the pace while the
-device idles.
+path records `encode` (encode_verify_batch, or on `cuda` the host encode
+and the choice of eager, capture or replay) and `enqueue` (the
+fused_verify call of batch_verify_async, or the copies and replays, with
+`graph_capture` inside where the call captures), and the programs record
+their stages: `comb_msm` (fused_verify), `affine`, `miller_loop` and
+`final_exp` (verify_tail, so fused_show_verify and gpu/shard.py record
+them too; a replay records each around its stage's graph). A span times
+the host's enqueue of its operators only: none synchronizes or reads a
+device value, so the device may still be running a stage's kernels when
+its span ends. That is the time that set the pace while the device idled.
 """
 
+import ctypes
 import os
 import secrets
 import threading
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 
 import numpy as np
 import torch
 
+from .. import metrics
 from ..batchverify import derive_combiners, show_transcript, verify_transcript
 from ..obs import trace as otrace
 from ..ops.curve import G1_COFACTOR, g1 as _g1, g2 as _g2
 from ..ops.fields import P, R
 from ..ops.hashing import DST_G1, expand_message_xmd
+from . import cuda_fp
 from . import curve as cv
 from . import fp
 from . import glv
@@ -82,7 +97,7 @@ from . import limbs
 from . import pairing as pr
 from . import tower as tw
 from .limbs import NLIMBS, fp_encode, fp_encode_raw_batch, fr_digits_signed_np
-from .serial import serialize_methods, serialized
+from .serial import one_off, serialize_methods, serialized
 
 _SIGNED_NWIN = 52  # signed 5-bit windows covering the 255-bit Fr
 
@@ -286,30 +301,33 @@ def _fields(sig_is_g1):
     return (cv.FP, cv.FP2) if sig_is_g1 else (cv.FP2, cv.FP)
 
 
-def verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2):
-    """Post-MSM half of the fused verify: normalize the accumulator and run
-    the two-pair pairing product e(s1, acc) * e(-s2, g_tilde) == 1, and-ed
-    with "sigma_1 is not the identity".
+def comb_msm_stage(sig_is_g1, wtables, mag, sgn):
+    """The fused verify's first stage: the comb MSM accumulator, projective
+    with leading [B], in the other group."""
+    return cv.msm_shared_comb(_fields(sig_is_g1)[1], wtables, mag, sgn)
+
+
+def affine_stage(sig_is_g1, acc, s1, s2n, gtx, gty):
+    """The point operands into the field arithmetic (_pts_f32) and the
+    accumulator normalized -> (s1, s2n, gtx, gty, ax, ay, ainf)."""
+    s1, s2n, gtx, gty = _pts_f32((s1, s2n, gtx, gty))
+    return (s1, s2n, gtx, gty) + cv.to_affine(_fields(sig_is_g1)[1], acc)
+
+
+def miller_stage(sig_is_g1, pts, inf1, inf2):
+    """The two-pair Miller loop of e(s1, acc) * e(-s2, g_tilde) over
+    affine_stage's output `pts`.
 
     The G1 assignment runs the two-pair loop with g_tilde's shared ladder
     (pr.miller_two_pairs_shared_q2). Under G2 the accumulator and g_tilde
     are the G1 side, and the generic pair set [B, 2] runs: P = (acc,
-    g_tilde), Q = (sigma_1, -sigma_2), g_tilde broadcast over the batch.
-
-    Stage spans (see the module docstring): `affine`, `miller_loop`,
-    `final_exp` (with the GT = 1 test)."""
-    s1, s2n, gtx, gty = _pts_f32((s1, s2n, gtx, gty))
-    with otrace.span("affine"):
-        ax, ay, ainf = cv.to_affine(_fields(sig_is_g1)[1], acc)
+    g_tilde), Q = (sigma_1, -sigma_2), g_tilde broadcast over the batch."""
+    s1, s2n, gtx, gty, ax, ay, ainf = pts
     if sig_is_g1:
-        with otrace.span("miller_loop"):
-            f = pr.miller_two_pairs_shared_q2(
-                s1[0], s1[1], ax, ay, ~inf1 & ~ainf,
-                s2n[0], s2n[1], gtx, gty, ~inf2,
-            )
-        with otrace.span("final_exp"):
-            one = tw.fp12_is_one(pr.final_exp(f))
-        return one & ~inf1
+        return pr.miller_two_pairs_shared_q2(
+            s1[0], s1[1], ax, ay, ~inf1 & ~ainf,
+            s2n[0], s2n[1], gtx, gty, ~inf2,
+        )
 
     def stack2(a, b):  # [B] lanes and [B] or constant -> [B, 2]
         return tw.tree_map(
@@ -318,14 +336,31 @@ def verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2):
 
     pinf = torch.stack([ainf, torch.zeros_like(ainf)], dim=-1)
     qinf = torch.stack([inf1, inf2], dim=-1)
+    return pr.multi_miller_loop(
+        stack2(ax, gtx), stack2(ay, gty), stack2(s1[0], s2n[0]),
+        stack2(s1[1], s2n[1]), ~(pinf | qinf),
+    )
+
+
+def final_exp_stage(f, inf1):
+    """The final exponentiation and the GT = 1 test, and-ed with "sigma_1
+    is not the identity": bool [B]."""
+    return tw.fp12_is_one(pr.final_exp(f)) & ~inf1
+
+
+def verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2):
+    """Post-MSM half of the fused verify: normalize the accumulator and run
+    the two-pair pairing product e(s1, acc) * e(-s2, g_tilde) == 1, and-ed
+    with "sigma_1 is not the identity".
+
+    Stage spans (see the module docstring): `affine`, `miller_loop`,
+    `final_exp` (with the GT = 1 test), one a stage function."""
+    with otrace.span("affine"):
+        pts = affine_stage(sig_is_g1, acc, s1, s2n, gtx, gty)
     with otrace.span("miller_loop"):
-        f = pr.multi_miller_loop(
-            stack2(ax, gtx), stack2(ay, gty), stack2(s1[0], s2n[0]),
-            stack2(s1[1], s2n[1]), ~(pinf | qinf),
-        )
+        f = miller_stage(sig_is_g1, pts, inf1, inf2)
     with otrace.span("final_exp"):
-        one = tw.fp12_is_one(pr.final_exp(f))
-    return one & ~inf1
+        return final_exp_stage(f, inf1)
 
 
 def fused_verify(sig_is_g1, wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2):
@@ -339,8 +374,162 @@ def fused_verify(sig_is_g1, wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2):
     sigma_1 / sigma_2. Returns bool [B]. The MSM runs in the stage span
     `comb_msm`, the rest in verify_tail's."""
     with otrace.span("comb_msm"):
-        acc = cv.msm_shared_comb(_fields(sig_is_g1)[1], wtables, mag, sgn)
+        acc = comb_msm_stage(sig_is_g1, wtables, mag, sgn)
     return verify_tail(sig_is_g1, acc, s1, s2n, gtx, gty, inf1, inf2)
+
+
+_HEAP_KEPT = []
+
+
+def _keep_freed_heap():
+    """Have glibc's malloc keep freed heap memory instead of returning it
+    to the system, once a process. A capture and its instantiation
+    allocate and free the driver's graph nodes by the tens of thousands; on
+    any thread but the main one (a stream's prefetch worker, an engine's
+    executor) glibc serves them from a per-thread arena that it shrinks
+    and regrows page by page, faulting the pages in again each time, and
+    the capture took 2-4x as long as on the main thread. A 256 MiB trim
+    threshold, a 64 MiB top pad and a 32 MiB mmap threshold (glibc's
+    largest) stop that. Other C libraries are left as they are."""
+    if _HEAP_KEPT:
+        return
+    _HEAP_KEPT.append(True)
+    mallopt = getattr(ctypes.CDLL(None), "mallopt", None)
+    if mallopt is None:
+        return
+    for param, value in ((-1, 256 << 20), (-2, 64 << 20), (-3, 32 << 20)):
+        mallopt(param, value)  # M_TRIM_THRESHOLD, M_TOP_PAD, M_MMAP_THRESHOLD
+
+
+class VerifyGraph:
+    """fused_verify for one shape key, captured as four CUDA graphs, one a
+    stage (comb_msm_stage, affine_stage, miller_stage, final_exp_stage),
+    sharing one memory pool: each stage's outputs are the next one's
+    static inputs, and replaying the four in capture order reuses the
+    pool as the capture did.
+
+    `inputs` are the static operands (wtables, mag, sgn, s1, s2n, gtx,
+    gty, inf1, inf2) the graphs read; `run` fills them by stream-ordered
+    copies, so a replay has read them before the next batch's copies
+    land. `widths` counts the fp_mul launches of one replay by width (the
+    capture's own count in cuda_fp.LAUNCH_WIDTHS); a replay runs no
+    Python in cuda_fp.launch, so `run` credits them."""
+
+    def __init__(self, sig_is_g1, like, device):
+        _keep_freed_heap()
+        self.device = device
+        self.inputs = tw.tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device=self.device), like
+        )
+        wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2 = self.inputs
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream(self.device)
+
+        def capture(stage):
+            # capture_begin/end, not torch.cuda.graph: its entry synchronizes
+            # the card and empties both caching allocators, which the queued
+            # replays of other batches and the next allocations would pay for
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    out = stage()
+                finally:
+                    g.capture_end()
+            return g, out
+
+        before = Counter(cuda_fp.LAUNCH_WIDTHS)
+        with torch.cuda.device(self.device):
+            g_msm, acc = capture(lambda: comb_msm_stage(sig_is_g1, wtables, mag, sgn))
+            g_aff, pts = capture(lambda: affine_stage(sig_is_g1, acc, s1, s2n, gtx, gty))
+            g_ml, f = capture(lambda: miller_stage(sig_is_g1, pts, inf1, inf2))
+            g_fe, self.bits = capture(lambda: final_exp_stage(f, inf1))
+        self.widths = Counter(cuda_fp.LAUNCH_WIDTHS) - before
+        self._stage_outputs = (acc, pts, f)
+        self.stages = (
+            ("comb_msm", g_msm), ("affine", g_aff),
+            ("miller_loop", g_ml), ("final_exp", g_fe),
+        )
+
+    def run(self, tables, host, credit=True):
+        """Feed and replay one batch; returns (pinned bits, event).
+
+        tables: (wtables, gtx, gty) on the device, copied device to
+        device; host: (mag, sgn, s1, s2n, inf1, inf2) on the host, staged
+        in pinned memory and copied without a sync. The bits land in a
+        fresh pinned tensor that `event` marks as written. credit=False
+        leaves the launches uncounted (the capture counted them)."""
+        wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2 = self.inputs
+        with torch.cuda.device(self.device):
+            for dst, src in zip(tw.leaves((wtables, gtx, gty)), tw.leaves(tables)):
+                dst.copy_(src)
+            for dst, src in zip(tw.leaves((mag, sgn, s1, s2n, inf1, inf2)), tw.leaves(host)):
+                dst.copy_(src.pin_memory(), non_blocking=True)
+            for name, g in self.stages:
+                with otrace.span(name):
+                    g.replay()
+            bits = torch.empty(self.bits.shape, dtype=self.bits.dtype, pin_memory=True)
+            bits.copy_(self.bits, non_blocking=True)
+            done = torch.cuda.Event(blocking=True)
+            done.record()
+        if credit:
+            cuda_fp.credit(self.widths)
+        return bits, done
+
+
+class _GraphPolicy:
+    """How the per-credential verify of a shape key is issued, from what
+    the backend has seen: the first call of a key runs eagerly (and warms
+    the lazy constant caches a capture needs), the second captures a
+    VerifyGraph and replays it, every later one replays. Graphs live in
+    an LRU of `maxsize` (each holds a memory pool); the keys seen once in
+    a larger one."""
+
+    def __init__(self, maxsize, seen_max=64):
+        self.graphs = _LRU(maxsize)
+        self.seen = _LRU(seen_max)
+
+    def lookup(self, key):
+        """("eager" | "capture" | "replay", the key's graph or None)."""
+        graph = self.graphs.get(key)
+        if graph is not None:
+            return "replay", graph
+        if self.seen.get(key):
+            return "capture", None
+        self.seen.put(key, True)
+        return "eager", None
+
+    def store(self, key, graph):
+        self.graphs.put(key, graph)
+
+
+_HOST = torch.device("cpu")
+
+
+def _verify_operands(tables, batch):
+    """(wtables, gtx, gty) and (mag, sgn, s1, s2n, inf1, inf2) -> the
+    fused_verify operand tuple."""
+    (wtables, gtx, gty), (mag, sgn, s1, s2n, inf1, inf2) = tables, batch
+    return (wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2)
+
+
+def _graph_key(slot, sig_is_g1, operands):
+    """The shape key of a verify batch: the card, the assignment, and the
+    shape and dtype of every operand leaf (B, base count, nwin)."""
+    return (slot, sig_is_g1) + tuple(
+        (tuple(t.shape), t.dtype) for t in tw.leaves(operands)
+    )
+
+
+def _graph_finalizer(bits, done):
+    """Zero-arg function that waits for `done` alone (not for the stream)
+    and returns the pinned bits as a list of Python bools."""
+
+    def finalize():
+        done.synchronize()
+        return [bool(b) for b in bits.tolist()]
+
+    return finalize
 
 
 def fused_show_verify(
@@ -778,7 +967,10 @@ class TorchBackend:
     Counters: `combined_checks` (calls of the combined methods),
     `grouped_checks` (calls of the grouped methods), `final_exps`
     (final-exponentiation lanes: B a batch on the exact paths, one a
-    combined or grouped check), `msm_horner_dispatches` /
+    combined or grouped check), `verify_graph_captures` /
+    `verify_graph_replays` (per-credential verify batches that captured
+    the program as a VerifyGraph, and that replayed one: a capture
+    replays too), `msm_horner_dispatches` /
     `msm_bucketed_dispatches` (distinct-MSM programs by schedule, the
     plus-offset ones included; `msm_bucket_window` is the last bucketed
     window), `msm_offset_dispatches` (plus-offset programs) and
@@ -789,6 +981,7 @@ class TorchBackend:
 
     _COMB_CACHE_MAX = 64
     _STATIC_CACHE_MAX = 32
+    _GRAPH_CACHE_MAX = 4
 
     def __init__(self, device=None, comb_window=None, raw_wire=None):
         self.device = resolve_device(device)
@@ -806,6 +999,9 @@ class TorchBackend:
         self.combined_checks = 0
         self.grouped_checks = 0
         self.final_exps = 0
+        self._verify_graphs = _GraphPolicy(self._GRAPH_CACHE_MAX)
+        self.verify_graph_captures = 0
+        self.verify_graph_replays = 0
         self.msm_horner_dispatches = 0
         self.msm_bucketed_dispatches = 0
         self.msm_bucket_window = None
@@ -815,40 +1011,42 @@ class TorchBackend:
 
     # -- point encoding ------------------------------------------------------
 
-    def _encode_g1_points(self, points):
+    def _encode_g1_points(self, points, device=None):
         xs = [(0 if p is None else p[0]) for p in points]
         ys = [(0 if p is None else p[1]) for p in points]
-        inf = torch.from_numpy(np.array([p is None for p in points])).to(self.device)
-        return self._encode_coords(xs, ys), inf
+        inf = torch.from_numpy(np.array([p is None for p in points]))
+        return self._encode_coords(xs, ys, device), inf.to(device or self.device)
 
-    def _encode_g2_points(self, points):
+    def _encode_g2_points(self, points, device=None):
         zero2 = (0, 0)
         xs = [(zero2 if p is None else p[0]) for p in points]
         ys = [(zero2 if p is None else p[1]) for p in points]
-        inf = torch.from_numpy(np.array([p is None for p in points])).to(self.device)
-        return self._encode_coords(xs, ys), inf
+        inf = torch.from_numpy(np.array([p is None for p in points]))
+        return self._encode_coords(xs, ys, device), inf.to(device or self.device)
 
-    def _encode_sigs(self, params, sigma_1s, sigma_2s):
+    def _encode_sigs(self, params, sigma_1s, sigma_2s, device=None):
         """sigma_1 and -sigma_2 of each lane, in the signature group of
         whichever assignment params.ctx names -> (s1, s2n, inf1, inf2): the
-        per-batch half of an encode."""
+        per-batch half of an encode, on `device` (the backend's by
+        default)."""
         if params.ctx.name == "G1":
             enc, neg = self._encode_g1_points, _g1.neg
         else:
             enc, neg = self._encode_g2_points, _g2.neg
-        s1, inf1 = enc(sigma_1s)
-        s2n, inf2 = enc([None if p is None else neg(p) for p in sigma_2s])
+        s1, inf1 = enc(sigma_1s, device)
+        s2n, inf2 = enc([None if p is None else neg(p) for p in sigma_2s], device)
         return s1, s2n, inf1, inf2
 
-    def _encode_coords(self, xs, ys):
+    def _encode_coords(self, xs, ys, device=None):
+        device = device or self.device
         if self.raw_wire:
             return (
-                tw.encode_raw_batch(xs, self.device),
-                tw.encode_raw_batch(ys, self.device),
+                tw.encode_raw_batch(xs, device),
+                tw.encode_raw_batch(ys, device),
             )
         return (
-            tw.encode_batch(xs, self.device, dtype=np.int16),
-            tw.encode_batch(ys, self.device, dtype=np.int16),
+            tw.encode_batch(xs, device, dtype=np.int16),
+            tw.encode_batch(ys, device, dtype=np.int16),
         )
 
     def _encode_gt(self, params):
@@ -902,10 +1100,11 @@ class TorchBackend:
         self._static_cache.put(key, val)
         return val
 
-    def _comb_digits(self, scalars_batch):
-        """Signed digits on the backend's comb schedule."""
+    def _comb_digits(self, scalars_batch, device=None):
+        """Signed digits on the backend's comb schedule, on `device` (the
+        backend's by default)."""
         return _signed_digits(
-            scalars_batch, self.device, nwin=self.nwin, window=self.window
+            scalars_batch, device or self.device, nwin=self.nwin, window=self.window
         )
 
     # -- fused hot path ------------------------------------------------------
@@ -920,34 +1119,72 @@ class TorchBackend:
         divisible by the mesh's tp extent). The padded tables are cached
         apart from the unpadded ones. Runs in the span `encode`."""
         with otrace.span("encode"):
-            is_g1 = params.ctx.name == "G1"
-            npad = max(0, (pad_bases_to or 0) - 1 - len(vk.Y_tilde))
+            tables, batch = self._verify_parts(sigs, messages_list, vk, params, pad_bases_to)
+            return _verify_operands(tables, self._upload(batch))
 
-            def build():
-                bases = [vk.X_tilde] + list(vk.Y_tilde) + [None] * npad
-                return (self._comb_tables(is_g1, bases),) + self._encode_gt(params)
+    def _verify_parts(self, sigs, messages_list, vk, params, pad_bases_to=None):
+        """encode_verify_batch's two halves: the cached (wtables, gtx, gty)
+        on the backend's device, and the batch's (mag, sgn, s1, s2n, inf1,
+        inf2) on the host."""
+        is_g1 = params.ctx.name == "G1"
+        npad = max(0, (pad_bases_to or 0) - 1 - len(vk.Y_tilde))
 
-            wtables, gtx, gty = self._static_operands(
-                "verify", vk, params, pad_bases_to, build
-            )
-            mag, sgn = self._comb_digits(
-                [[1] + [m % R for m in msgs] + [0] * npad for msgs in messages_list]
-            )
-            s1, s2n, inf1, inf2 = self._encode_sigs(
-                params, [s.sigma_1 for s in sigs], [s.sigma_2 for s in sigs]
-            )
-            return (wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2)
+        def build():
+            bases = [vk.X_tilde] + list(vk.Y_tilde) + [None] * npad
+            return (self._comb_tables(is_g1, bases),) + self._encode_gt(params)
+
+        tables = self._static_operands("verify", vk, params, pad_bases_to, build)
+        mag, sgn = self._comb_digits(
+            [[1] + [m % R for m in msgs] + [0] * npad for msgs in messages_list],
+            _HOST,
+        )
+        s1, s2n, inf1, inf2 = self._encode_sigs(
+            params, [s.sigma_1 for s in sigs], [s.sigma_2 for s in sigs], _HOST
+        )
+        return tables, (mag, sgn, s1, s2n, inf1, inf2)
+
+    def _upload(self, tree):
+        return tw.tree_map(lambda t: t.to(self.device), tree)
 
     def batch_verify_async(self, sigs, messages_list, vk, params):
         """Encode and enqueue the fused verify on the device; returns a
-        zero-arg finalizer that waits for the bits."""
+        zero-arg finalizer that waits for the bits.
+
+        On `cuda` a shape key's second call captures the program as a
+        VerifyGraph and every later one replays it (_GraphPolicy): the
+        batch's operands are encoded on the host and copied into the
+        graph's static inputs without a sync, and the finalizer waits for
+        this batch's bits alone. The first call of a key, and every call on
+        the CPU, runs fused_verify eagerly. The capture is one-off host work
+        (serial.one_off), which a hung-dispatch watchdog does not count."""
         if not sigs:
             return lambda: []
-        operands = self.encode_verify_batch(sigs, messages_list, vk, params)
-        with otrace.span("enqueue"):
-            bits = fused_verify(params.ctx.name == "G1", *operands)
+        sig_is_g1 = params.ctx.name == "G1"
         self.final_exps += len(sigs)
-        return _finalizer(bits)
+        with otrace.span("encode"):
+            tables, batch = self._verify_parts(sigs, messages_list, vk, params)
+            action = "eager"
+            if self.device.type == "cuda":
+                key = _graph_key(
+                    device_slot(self.device), sig_is_g1, _verify_operands(tables, batch)
+                )
+                action, graph = self._verify_graphs.lookup(key)
+            if action == "eager":
+                operands = _verify_operands(tables, self._upload(batch))
+        with otrace.span("enqueue"):
+            if action == "eager":
+                return _finalizer(fused_verify(sig_is_g1, *operands))
+            if action == "capture":
+                with otrace.span("graph_capture"), one_off():
+                    like = _verify_operands(tables, batch)
+                    graph = VerifyGraph(sig_is_g1, like, torch.device("cuda", key[0]))
+                self._verify_graphs.store(key, graph)
+                self.verify_graph_captures += 1
+                metrics.count("verify_graph_captures")
+            bits, done = graph.run(tables, batch, credit=action == "replay")
+        self.verify_graph_replays += 1
+        metrics.count("verify_graph_replays")
+        return _graph_finalizer(bits, done)
 
     def batch_verify(self, sigs, messages_list, vk, params):
         """Fully fused batched PS verification: one bool per credential."""

@@ -7,7 +7,8 @@ at first use and loaded with ctypes); for CPU tensors it runs `mul_plain`,
 the same function in PyTorch. Nothing falls back: a CUDA tensor goes to the
 kernel or raises. `LAUNCHES` counts kernel launches and `PLAIN_CALLS`
 counts calls of the plain version, so a run can show which one it took;
-`LAUNCH_WIDTHS` counts the launches by their number of lanes. The serve
+`LAUNCH_WIDTHS` counts the launches by their number of lanes (a CUDA
+graph's replay credits the launches its capture recorded). The serve
 layer's executor threads call the wrapper concurrently: the build and the
 library load run under one module lock, and the counts under another.
 
@@ -209,6 +210,16 @@ def launch(a, b, out):
         LAUNCHES += 1
         LAUNCH_WIDTHS[n] += 1
     return out
+
+
+def credit(widths):
+    """Count launches that the device runs without a call of `launch`: a
+    CUDA graph's replay of the launches its capture recorded. `widths` is
+    a Counter of launches by lanes."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += sum(widths.values())
+        LAUNCH_WIDTHS.update(widths)
 
 
 # --- the plain version ------------------------------------------------------

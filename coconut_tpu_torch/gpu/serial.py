@@ -22,15 +22,45 @@ stream's prefetch worker, the wait that holds back the next enqueue, and
 else to do meanwhile; plain `lock_wait` with no active span. The span
 carries the waiting thread's name (`thread`). An uncontended call, and
 every call with tracing off, costs one non-blocking acquire and opens no
-span."""
+span.
 
+One-off host work on this path, such as the capture of a CUDA graph,
+runs under `one_off()`: every call waiting behind it waits that much
+longer, and a hung-dispatch watchdog (serve/health.Watchdog, given
+`one_off_seconds`) adds that time to the budget of each dispatch in
+flight meanwhile instead of taking the wait for a hang."""
+
+import contextlib
 import functools
 import inspect
 import threading
+import time
 
 from ..obs import trace as otrace
 
 DEVICE_LOCK = threading.RLock()
+
+# (seconds of finished one-off work, monotonic start of the one under way
+# or None), replaced whole so a reader never sees half an update
+_ONE_OFF = (0.0, None)
+
+
+@contextlib.contextmanager
+def one_off():
+    """Mark the block as one-off host work (not nested)."""
+    global _ONE_OFF
+    start = time.monotonic()
+    _ONE_OFF = (_ONE_OFF[0], start)
+    try:
+        yield
+    finally:
+        _ONE_OFF = (_ONE_OFF[0] + time.monotonic() - start, None)
+
+
+def one_off_seconds():
+    """Seconds of one-off host work so far, the work under way included."""
+    done, start = _ONE_OFF
+    return done if start is None else done + time.monotonic() - start
 
 
 def _acquire(lock):

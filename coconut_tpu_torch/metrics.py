@@ -15,6 +15,11 @@ The host layers report here:
       back to the bisection ladder), "verify_bisection_depth" (ladder
       splits while naming a rejected batch's lanes — depth per incident
       is the delta across the fallback);
+  gpu/backend.py (TorchBackend's per-credential verify on `cuda`)
+      "verify_graph_captures" (batches whose shape key was captured into
+      CUDA graphs: a key's second call) and "verify_graph_replays"
+      (batches issued as a replay of those graphs, the capturing batch
+      included; the rest ran eagerly);
   issue/ (the issuance service, beside the README's "issue" namespace)
       "issue_probes" (fan-outs placed on a PROBATION authority, the
       half-open probe), "issue_sign_skips" (popped signs skipped because

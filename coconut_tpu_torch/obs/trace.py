@@ -48,7 +48,12 @@ Span taxonomy:
                                          static operands, comb digits,
                                          signature encode and upload
                           enqueue        the fused_verify call: every
-                                         operator launch of the program
+                                         operator launch of the program,
+                                         or on `cuda` its graphs' input
+                                         copies and replays
+                            graph_capture
+                                         a shape key's capture into
+                                         CUDA graphs (its second call)
                             comb_msm     the verkey comb MSM
                             affine       the accumulator's normalization
                             miller_loop  the pairing's Miller loop
@@ -56,6 +61,9 @@ Span taxonomy:
                         device           blocking wait on the device
                           lock_wait.device
                                          the readback waiting for the lock
+                                         (eager batches only: a replayed
+                                         batch's readback waits for its
+                                         own event, without the lock)
                         demux            verdict bits -> futures
                         bisect           grouped-failure culprit isolation
 
@@ -63,7 +71,8 @@ Span taxonomy:
   stage's operators, never the device's run of them: no span
   synchronizes or reads a device value. `affine`, `miller_loop` and
   `final_exp` come from verify_tail, so the show and sharded programs
-  record them too (under their own parents). A wait for the device lock
+  record them too (under their own parents); a replayed verify records
+  each around the replay of its stage's graph. A wait for the device lock
   is named after the span it waits under, `lock_wait.<parent>` (plain
   `lock_wait` under none), so the prefetch worker's waits and the
   settle's sum apart; it carries the waiting thread's name (`thread`).

@@ -72,8 +72,8 @@ from .gpu import tower as tw
 from .gpu.backend import (
     _G_ENTRIES, TorchBackend, _combiner_digits, _decode_points, _grouped_horner,
     _grouped_tail_miller, _grouped_window_sums, _pack_pts, _pts_f32, _tree_fold_fp12,
-    hash_to_g1_program, msm_distinct_affine_program, msm_distinct_plus_offset_program,
-    msm_shared_many_program,
+    affine_stage, comb_msm_stage, hash_to_g1_program, miller_stage, msm_distinct_affine_program,
+    msm_distinct_plus_offset_program, msm_shared_many_program,
 )
 from .ops.fields import R
 from .sss import rand_fr
@@ -89,19 +89,10 @@ def _stage(fn):
 
 
 def _tail_stages(out, acc, s1, s2n, gtx, gty, inf1, inf2, ok=None):
-    """verify_tail's stages, one after another, into `out`; `ok` is and-ed
-    into the bits (the show path's Schnorr verdicts)."""
-
-    def affine():
-        pts = _pts_f32((s1, s2n, gtx, gty))
-        return pts, cv.to_affine(cv.FP2, acc)
-
-    ((s1f, s2f, gtxf, gtyf), (ax, ay, ainf)), out["affine"] = _stage(affine)
-    f, out["miller"] = _stage(
-        lambda: pr.miller_two_pairs_shared_q2(
-            s1f[0], s1f[1], ax, ay, ~inf1 & ~ainf, s2f[0], s2f[1], gtxf, gtyf, ~inf2
-        )
-    )
+    """verify_tail's stages (G1 assignment), one after another, into `out`;
+    `ok` is and-ed into the bits (the show path's Schnorr verdicts)."""
+    pts, out["affine"] = _stage(lambda: affine_stage(True, acc, s1, s2n, gtx, gty))
+    f, out["miller"] = _stage(lambda: miller_stage(True, pts, inf1, inf2))
     fe, out["final_exp"] = _stage(lambda: pr.final_exp(f))
 
     def is_one():
@@ -118,7 +109,7 @@ def stages(be, sigs, msgs, vk, params):
     out = {}
     ops, out["encode"] = _stage(lambda: be.encode_verify_batch(sigs, msgs, vk, params))
     wtables, mag, sgn, s1, s2n, gtx, gty, inf1, inf2 = ops
-    acc, out["comb_msm"] = _stage(lambda: cv.msm_shared_comb(cv.FP2, wtables, mag, sgn))
+    acc, out["comb_msm"] = _stage(lambda: comb_msm_stage(True, wtables, mag, sgn))
     return _tail_stages(out, acc, s1, s2n, gtx, gty, inf1, inf2), out
 
 

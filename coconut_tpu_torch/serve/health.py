@@ -37,7 +37,10 @@ watchdog tracks every dispatch from launch and
 `expire()`s the ones that outlive their budget: ``k × EMA`` of that
 executor's observed dispatch-to-settle time, clamped to
 [min_timeout_s, max_timeout_s], with `initial_timeout_s` covering the
-first dispatch (which may pay a kernel build). Expired entries are POPPED
+first dispatch (which may pay a kernel build). One-off host work that
+every dispatch in flight waits behind (a CUDA graph's capture, which the
+engine reads from gpu/serial.one_off_seconds through `stall`) extends
+their deadlines by its length. Expired entries are POPPED
 (a hang fires exactly once); the service abandons the stuck executor and
 redistributes the hung batch. The clock is injectable: tests drive
 expiry by advancing a fake clock, never by sleeping.
@@ -338,7 +341,9 @@ class Watchdog:
     returns everything past its deadline. Budget per dispatch:
     ``clamp(k * ema, min_timeout_s, max_timeout_s)``, or
     `initial_timeout_s` while no EMA exists yet (the first dispatch may
-    pay the kernel build and cold tables; don't shoot it). All state is behind one lock —
+    pay the kernel build and cold tables; don't shoot it). A dispatch's
+    deadline moves back by the growth of `stall()` (seconds of one-off
+    host work done so far) since its begin(). All state is behind one lock —
     executor threads begin/end while the watchdog thread expires."""
 
     def __init__(
@@ -349,6 +354,7 @@ class Watchdog:
         initial_timeout_s=600.0,
         max_timeout_s=600.0,
         alpha=0.25,
+        stall=lambda: 0.0,
     ):
         if k <= 0 or alpha <= 0 or alpha > 1:
             raise ValueError("need k > 0 and 0 < alpha <= 1")
@@ -358,8 +364,10 @@ class Watchdog:
         self.initial_timeout_s = initial_timeout_s
         self.max_timeout_s = max_timeout_s
         self.alpha = alpha
+        self.stall = stall
         self._lock = threading.Lock()
-        self._inflight = {}  # (label, seq) -> (deadline, started, reqs, span)
+        # (label, seq) -> (deadline, started, reqs, span, stall at begin)
+        self._inflight = {}
         self._ema = {}  # label -> EMA of successful dispatch durations
 
     def _budget_locked(self, label):
@@ -379,12 +387,14 @@ class Watchdog:
 
     def begin(self, label, seq, requests, span=None, now=None):
         now = self.clock() if now is None else now
+        stall = self.stall()
         with self._lock:
             self._inflight[(label, seq)] = (
                 now + self._budget_locked(label),
                 now,
                 requests,
                 span,
+                stall,
             )
 
     def end(self, label, seq, ok=True, now=None):
@@ -417,12 +427,16 @@ class Watchdog:
         ``(label, seq, requests, span, overdue_s)`` — popping makes each
         hang fire exactly once."""
         now = self.clock() if now is None else now
+        stall = self.stall()
         out = []
         with self._lock:
-            due = [k for k, v in self._inflight.items() if now >= v[0]]
+            due = [
+                k for k, v in self._inflight.items() if now >= v[0] + stall - v[4]
+            ]
             for key in due:
-                deadline, _started, requests, span = self._inflight.pop(key)
-                out.append((key[0], key[1], requests, span, now - deadline))
+                deadline, _started, requests, span, stall0 = self._inflight.pop(key)
+                overdue = now - deadline - (stall - stall0)
+                out.append((key[0], key[1], requests, span, overdue))
         return out
 
     def inflight(self):
