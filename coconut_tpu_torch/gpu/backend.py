@@ -244,10 +244,15 @@ class _LRU:
             return val
 
     def put(self, key, val):
+        """Store `val` under `key`; returns how many older entries the cap
+        dropped."""
+        dropped = 0
         with self._lock:
             while len(self._d) >= self.maxsize:
                 self._d.popitem(last=False)
+                dropped += 1
             self._d[key] = val
+        return dropped
 
 
 class PackedPoints(tuple):
@@ -483,11 +488,13 @@ class _GraphPolicy:
     the lazy constant caches a capture needs), the second captures a
     VerifyGraph and replays it, every later one replays. Graphs live in
     an LRU of `maxsize` (each holds a memory pool); the keys seen once in
-    a larger one."""
+    a larger one. `evictions` (and the counter "verify_graph_evictions")
+    counts the graphs the LRU dropped."""
 
     def __init__(self, maxsize, seen_max=64):
         self.graphs = _LRU(maxsize)
         self.seen = _LRU(seen_max)
+        self.evictions = 0
 
     def lookup(self, key):
         """("eager" | "capture" | "replay", the key's graph or None)."""
@@ -500,7 +507,10 @@ class _GraphPolicy:
         return "eager", None
 
     def store(self, key, graph):
-        self.graphs.put(key, graph)
+        dropped = self.graphs.put(key, graph)
+        if dropped:
+            self.evictions += dropped
+            metrics.count("verify_graph_evictions", dropped)
 
 
 _HOST = torch.device("cpu")
@@ -970,7 +980,8 @@ class TorchBackend:
     combined or grouped check), `verify_graph_captures` /
     `verify_graph_replays` (per-credential verify batches that captured
     the program as a VerifyGraph, and that replayed one: a capture
-    replays too), `msm_horner_dispatches` /
+    replays too; the graphs the LRU of four dropped count in the registry's
+    `verify_graph_evictions`), `msm_horner_dispatches` /
     `msm_bucketed_dispatches` (distinct-MSM programs by schedule, the
     plus-offset ones included; `msm_bucket_window` is the last bucketed
     window), `msm_offset_dispatches` (plus-offset programs) and
@@ -1146,9 +1157,11 @@ class TorchBackend:
     def _upload(self, tree):
         return tw.tree_map(lambda t: t.to(self.device), tree)
 
-    def batch_verify_async(self, sigs, messages_list, vk, params):
+    def batch_verify_async(self, sigs, messages_list, vk, params, pad_bases_to=None):
         """Encode and enqueue the fused verify on the device; returns a
-        zero-arg finalizer that waits for the bits.
+        zero-arg finalizer that waits for the bits. pad_bases_to pads the
+        base axis as encode_verify_batch's does, so verkeys of different
+        attribute counts can share one shape key.
 
         On `cuda` a shape key's second call captures the program as a
         VerifyGraph and every later one replays it (_GraphPolicy): the
@@ -1162,7 +1175,7 @@ class TorchBackend:
         sig_is_g1 = params.ctx.name == "G1"
         self.final_exps += len(sigs)
         with otrace.span("encode"):
-            tables, batch = self._verify_parts(sigs, messages_list, vk, params)
+            tables, batch = self._verify_parts(sigs, messages_list, vk, params, pad_bases_to)
             action = "eager"
             if self.device.type == "cuda":
                 key = _graph_key(

@@ -9,7 +9,10 @@ The host layers report here:
       "checkpoint_quarantined", "prefetch_wait" (timer),
       "prefetched_batches", "dead_letter_torn_lines", "flight_torn_lines",
       and "rotations" / "rotation_errors" (dead-letter / flight JSONL
-      rotation, obs/flight.rotate_if_needed);
+      rotation, obs/flight.rotate_if_needed); stream.verify_ledger's
+      "ledger_dispatches" (issuer batches dispatched), "ledger_lanes"
+      (their lanes, padding included) and "ledger_pad_lanes" (the
+      identity lanes that fill each issuer's tail);
   ps.py (the batched verify and show checks)
       "verify_batched_fallbacks" (combined checks that rejected and fell
       back to the bisection ladder), "verify_bisection_depth" (ladder
@@ -19,7 +22,8 @@ The host layers report here:
       "verify_graph_captures" (batches whose shape key was captured into
       CUDA graphs: a key's second call) and "verify_graph_replays"
       (batches issued as a replay of those graphs, the capturing batch
-      included; the rest ran eagerly);
+      included; the rest ran eagerly) and "verify_graph_evictions"
+      (graphs the LRU of shape keys dropped);
   issue/ (the issuance service, beside the README's "issue" namespace)
       "issue_probes" (fan-outs placed on a PROBATION authority, the
       half-open probe), "issue_sign_skips" (popped signs skipped because

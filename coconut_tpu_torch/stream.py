@@ -53,6 +53,12 @@ sharded over a gpu/shard.py Mesh instead (the two are exclusive).
 
 The credential source is any callable `batch_index -> (sigs, messages_list)`
 so a long stream never needs to exist in memory at once.
+
+Ledgers: `verify_ledger` verifies a ledger whose records come from several
+issuers, of schemas with any attribute count, through the same pipeline:
+each record is routed into its issuer's batches, the verkeys are padded to
+a few base counts so the batches share shape keys, and verdicts come back
+per ledger segment, in ledger order.
 """
 
 import binascii
@@ -71,19 +77,9 @@ from .obs import trace as otrace
 STATE_SCHEMA_VERSION = 2
 
 
-def run_fingerprint(mode, vk, params=None):
-    """Digest binding a stream run's configuration: the result mode and
-    the verkey (canonical bytes when the GroupContext can serialize it,
-    repr of its components otherwise). Stored in the checkpoint so a
-    resume against a DIFFERENT run fails loudly (CheckpointMismatchError)
-    instead of silently merging tallies. The batch count is deliberately
-    NOT part of the digest: growing a stream (resuming a 2-batch
-    checkpoint with n_batches=4 to verify the next batches) is a
-    first-class resume pattern — what must never change across a resume
-    is WHAT is being verified (the verkey) and what the tallies mean
-    (the mode)."""
-    h = hashlib.sha256()
-    h.update(("%s|" % (mode,)).encode())
+def _verkey_bytes(vk, params):
+    """A verkey's canonical bytes when the GroupContext can serialize it,
+    the repr of its components otherwise."""
     vkb = None
     if params is not None and vk is not None:
         try:
@@ -94,7 +90,36 @@ def run_fingerprint(mode, vk, params=None):
         vkb = repr(
             (getattr(vk, "X_tilde", None), getattr(vk, "Y_tilde", None))
         ).encode()
-    h.update(vkb)
+    return vkb
+
+
+def run_fingerprint(mode, vk, params=None):
+    """Digest binding a stream run's configuration: the result mode and
+    the verkey (_verkey_bytes). Stored in the checkpoint so a
+    resume against a DIFFERENT run fails loudly (CheckpointMismatchError)
+    instead of silently merging tallies. The batch count is deliberately
+    NOT part of the digest: growing a stream (resuming a 2-batch
+    checkpoint with n_batches=4 to verify the next batches) is a
+    first-class resume pattern — what must never change across a resume
+    is WHAT is being verified (the verkey) and what the tallies mean
+    (the mode)."""
+    h = hashlib.sha256()
+    h.update(("%s|" % (mode,)).encode())
+    h.update(_verkey_bytes(vk, params))
+    return h.hexdigest()[:16]
+
+
+def ledger_fingerprint(mode, issuers, params=None):
+    """run_fingerprint of a ledger (verify_ledger): the mode and every
+    (issuer id, verkey) pair, in the order of the ids' reprs, so a resume
+    under another issuer set, or another verkey for one issuer, is
+    refused. The segment count and the batch width are not part of it."""
+    h = hashlib.sha256()
+    h.update(("ledger|%s|" % (mode,)).encode())
+    for iid in sorted(issuers, key=repr):
+        h.update(("%r|" % (iid,)).encode())
+        h.update(_verkey_bytes(issuers[iid], params))
+        h.update(b"|")
     return h.hexdigest()[:16]
 
 
@@ -256,12 +281,19 @@ def _pin_to_device(dispatch, device):
     return pinned
 
 
-def _dispatchers(backend, mode, mesh=None, device=None, mesh_pad_to=None):
+def _dispatchers(
+    backend, mode, mesh=None, device=None, mesh_pad_to=None, pad_bases_to=None
+):
     """(dispatch, record, is_async) for the chosen mode. dispatch(sigs,
     msgs, vk, params) -> zero-arg finalizer; record(state, result,
     batch_size). is_async=False means dispatch computes synchronously —
     pipelining such a backend would only delay checkpoints, never overlap
     work, so verify_stream settles each batch immediately.
+
+    pad_bases_to: vk -> the base count to pad that verkey's batches to
+    (None: unpadded), handed to a per-credential `batch_verify_async`
+    (a synchronous `batch_verify` runs unpadded); verify_ledger's few
+    shapes over many schemas.
 
     mesh: run the grouped or per-credential mode sharded over a
     gpu/shard.py Mesh (config 5 over several devices: the batch is split
@@ -322,8 +354,12 @@ def _dispatchers(backend, mode, mesh=None, device=None, mesh_pad_to=None):
                 bits = backend.batch_verify(s, m, vk, params)
                 return lambda: bits
 
-        else:
+        elif pad_bases_to is None:
             dispatch = async_fn
+        else:
+
+            def dispatch(s, m, vk, params):
+                return async_fn(s, m, vk, params, pad_bases_to=pad_bases_to(vk))
 
         return (
             _pin_to_device(dispatch, device),
@@ -661,37 +697,11 @@ def verify_stream(
     files are quarantined to `<state_path>.corrupt*` and the stream
     restarts cleanly; a fingerprint mismatch raises
     CheckpointMismatchError."""
-    from .backend import get_backend
-    from .retry import RetryPolicy, call_with_retry, note_attempt
-
-    if backend is None or isinstance(backend, str):
-        backend = get_backend(backend or "torch")
-    dispatch, record, is_async = _dispatchers(backend, mode, mesh=mesh)
-    pipeline = pipeline and is_async  # sync backends: settle immediately
-    if pipeline_depth < 1:
-        raise ValueError("pipeline_depth must be >= 1")
-    if prefetch_depth < 0:
-        raise ValueError("prefetch_depth must be >= 0")
-    if isinstance(fallback_backend, str):
-        fallback_backend = get_backend(fallback_backend)
-    fallback_dispatch = (
-        _fallback_dispatcher(fallback_backend, mode)
-        if fallback_backend is not None
-        else None
+    sup = _Supervisor(
+        backend, mode, retry_policy, fallback_backend, pipeline,
+        pipeline_depth, prefetch_depth, mesh=mesh,
     )
-    policy = retry_policy
-    if policy is None:
-        # no retry ladder: transient errors go straight to the fallback
-        # when one exists, else propagate exactly as they always did
-        policy = RetryPolicy(
-            max_attempts=1,
-            base_delay=0.0,
-            retryable=(
-                (TransientBackendError,)
-                if fallback_dispatch is not None
-                else ()
-            ),
-        )
+    backend, policy = sup.backend, sup.policy
     if bisect_failures is None:
         bisect_failures = (
             mode in ("grouped", "batched") and dead_letter_path is not None
@@ -699,7 +709,7 @@ def verify_stream(
     bisector = None
     if bisect_failures and mode in ("grouped", "batched"):
         bisector = _make_bisector(
-            backend, fallback_backend, vk, params, policy, dead_letter_path,
+            backend, sup.fallback_backend, vk, params, policy, dead_letter_path,
             predicate="combined" if mode == "batched" else "grouped",
         )
 
@@ -708,20 +718,119 @@ def verify_stream(
         fingerprint = run_fingerprint(mode, vk, params)
     state = StreamState(state_path, fingerprint=fingerprint)
 
-    def launch(i, sigs, msgs):
+    def settle(idx, finalize, n, sigs, msgs, attempts, bspan):
+        with otrace.use(bspan):
+            try:
+                with otrace.span("device"):
+                    result = finalize()
+            except BaseException as e:
+                bspan.end(error=type(e).__name__)
+                raise
+            if bisector is not None and not result:
+                culprits = bisector(sigs, msgs, idx, attempts)
+                state.batches_failed += 1
+                state.failed += len(culprits)
+                state.verified += n - len(culprits)
+            else:
+                sup.record(state, result, n)
+            # deliver results BEFORE persisting the checkpoint: a crash
+            # inside on_batch then re-runs the batch (at-least-once
+            # delivery) instead of silently dropping its verdicts
+            if on_batch is not None:
+                on_batch(idx, result)
+            state.next_batch = idx + 1
+            state.save()
+            bspan.event("checkpoint", next_batch=idx + 1)
+        bspan.end(
+            ok=bool(result) if not isinstance(result, list) else None
+        )
+
+    def launched():
+        for i in range(state.next_batch, n_batches):
+            sigs, messages_list = source(i)
+            finalize, attempts, bspan = sup.launch(
+                i, sigs, messages_list, vk, params
+            )
+            yield (
+                i,
+                finalize,
+                len(sigs),
+                sigs,
+                messages_list,
+                attempts,
+                bspan,
+            )
+
+    sup.drive(launched, settle)
+    return state
+
+
+class _Supervisor:
+    """What verify_stream and verify_ledger share: the backend, the
+    mode's dispatch and accounting (_dispatchers), the retry policy and
+    the fallback, each batch's launch under them, and the pipeline that
+    settles launched batches in order (`drive`)."""
+
+    def __init__(
+        self, backend, mode, retry_policy, fallback_backend, pipeline,
+        pipeline_depth, prefetch_depth, mesh=None, pad_bases_to=None,
+    ):
+        from .backend import get_backend
+        from .retry import RetryPolicy
+
+        if backend is None or isinstance(backend, str):
+            backend = get_backend(backend or "torch")
+        self.backend = backend
+        self.dispatch, self.record, is_async = _dispatchers(
+            backend, mode, mesh=mesh, pad_bases_to=pad_bases_to
+        )
+        # sync backends: settle immediately
+        self.pipeline = pipeline and is_async
+        if pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
+        if prefetch_depth < 0:
+            raise ValueError("prefetch_depth must be >= 0")
+        self.pipeline_depth, self.prefetch_depth = pipeline_depth, prefetch_depth
+        if isinstance(fallback_backend, str):
+            fallback_backend = get_backend(fallback_backend)
+        self.fallback_backend = fallback_backend
+        self.fallback_dispatch = (
+            _fallback_dispatcher(fallback_backend, mode)
+            if fallback_backend is not None
+            else None
+        )
+        policy = retry_policy
+        if policy is None:
+            # no retry ladder: transient errors go straight to the fallback
+            # when one exists, else propagate exactly as they always did
+            policy = RetryPolicy(
+                max_attempts=1,
+                base_delay=0.0,
+                retryable=(
+                    (TransientBackendError,)
+                    if self.fallback_dispatch is not None
+                    else ()
+                ),
+            )
+        self.policy = policy
+
+    def launch(self, i, sigs, msgs, vk, params):
         """Dispatch batch i now (pipelining) and return (finalize,
         attempts, span). finalize() re-runs the whole dispatch+readback
         cycle under the retry ladder, then the fallback, before giving
         up. The batch's "stream_batch" trace starts here (possibly on the
         prefetch worker thread) and is handed to settle() with the rest
         of the launch state."""
+        from .retry import call_with_retry, note_attempt
+
+        dispatch, policy = self.dispatch, self.policy
         attempts = []
         box = [None]
         bspan = otrace.start_span(
             "stream_batch", root=True, batch=i, n=len(sigs)
         )
         with otrace.use(bspan):
-            with otrace.span("dispatch", backend=type(backend).__name__):
+            with otrace.span("dispatch", backend=type(self.backend).__name__):
                 try:
                     box[0] = dispatch(sigs, msgs, vk, params)
                 except policy.retryable as e:
@@ -739,8 +848,8 @@ def verify_stream(
             return fin()
 
         fallback = (
-            (lambda: fallback_dispatch(sigs, msgs, vk, params)())
-            if fallback_dispatch is not None
+            (lambda: self.fallback_dispatch(sigs, msgs, vk, params)())
+            if self.fallback_dispatch is not None
             else None
         )
 
@@ -751,7 +860,175 @@ def verify_stream(
 
         return finalize, attempts, bspan
 
-    def settle(idx, finalize, n, sigs, msgs, attempts, bspan):
+    def drive(self, produce, settle):
+        """Settle every item of `produce()` (a generator of launched
+        batches) in order: at most `pipeline_depth` in flight, the
+        launches on the prefetch worker when pipelining with a
+        `prefetch_depth`."""
+        pipeline = self.pipeline
+        launched = (
+            _prefetch_launches(produce, self.prefetch_depth)
+            if pipeline and self.prefetch_depth > 0
+            else produce()
+        )
+        pending = []  # [(index, finalize, batch_size, sigs, msgs, attempts, span)]
+        try:
+            for item in launched:
+                if not pipeline:
+                    settle(*item)
+                    continue
+                pending.append(item)
+                if len(pending) >= self.pipeline_depth:
+                    settle(*pending.pop(0))
+        finally:
+            # a settle error must tear the prefetch worker down NOW, not at
+            # GC (the propagating traceback pins this frame — and with it
+            # the generator — alive), so the worker never lingers blocked
+            # on a full queue
+            launched.close()
+        for p in pending:
+            settle(*p)
+
+
+def _pad_classes(issuers):
+    """vk -> the base count verify_ledger pads that verkey's batches to, in
+    two classes: the ledger's largest base count m, and (m + 1) // 2 for
+    the verkeys it holds. The comb MSM's device time grows with the base
+    count: at B = 4,096 on an H100 padding 3 bases to 9 cost 17 % of the
+    padded batch's device time, to 5 bases 6 % (PERF.md)."""
+    m = 1 + max(len(vk.Y_tilde) for vk in issuers.values())
+    half = (m + 1) // 2
+    return lambda vk: half if 1 + len(vk.Y_tilde) <= half else m
+
+
+def verify_ledger(
+    source,
+    n_segments,
+    issuers,
+    params,
+    backend,
+    batch=4096,
+    state_path=None,
+    on_segment=None,
+    mode="per_credential",
+    pipeline_depth=3,
+    prefetch_depth=2,
+    retry_policy=None,
+    fallback_backend=None,
+):
+    """Verify a ledger of credentials from several issuers, in ledger
+    order, through verify_stream's pipeline with routing in front.
+
+    source(i) -> ledger segment i as records [(sig, messages, issuer_id)];
+    issuers: {issuer_id: verkey}, all under `params`, their schemas of any
+    attribute counts. Each record is routed into its issuer's queue (span
+    `route`, one a segment, on the thread that calls `source`); a queue
+    that holds `batch` records is dispatched as one batch under its
+    issuer's verkey, through the same dispatch, pipeline depth, prefetch
+    worker, retry policy, fallback and StreamState as verify_stream. At
+    the end of the ledger each issuer's tail is dispatched too; in mode
+    "per_credential" it is filled to `batch` with identity lanes
+    (serve.batcher.PAD_CREDENTIAL), whose verdicts are dropped, so every
+    batch has one width.
+
+    Each verkey is padded (identity bases, zero scalars) to one of two
+    base counts, the ledger's largest m and (m + 1) // 2 (_pad_classes), so
+    issuers of different schemas share two shape keys and, on `cuda`, two
+    CUDA graphs of the backend's four, each replay copying in its own
+    issuer's tables: a per-credential `batch_verify_async` is handed
+    `pad_bases_to`, as TorchBackend's takes it.
+
+    on_segment(i, verdicts) fires once every record of segment i has
+    settled, segments in order, with one verdict per record in ledger
+    order: a bool per record in mode "per_credential"; in modes "grouped"
+    and "batched" each record gets its issuer batch's one bool (no
+    bisection). Padded lanes never reach it. Returns the final StreamState:
+    `next_batch` is the next segment to deliver, `verified` / `failed`
+    count the delivered records.
+
+    The checkpoint at `state_path` is the highest segment below which
+    every record has settled and been delivered; its fingerprint
+    (ledger_fingerprint) digests the mode and every (issuer_id, verkey)
+    pair, so a resume under another issuer set raises
+    CheckpointMismatchError. Delivery is at-least-once: a crash re-runs
+    every record from the checkpoint's segment on, that is the records of
+    the batches in flight (at most pipeline_depth + prefetch_depth + 1), of
+    the partly filled queues (fewer than `batch` an issuer), and every
+    record routed after the oldest of those. With k issuers of equal
+    share that is at most about (k + pipeline_depth + prefetch_depth + 1)
+    * batch records; an issuer with a small share holds the checkpoint
+    back until its queue fills, and every record routed meanwhile re-runs.
+
+    Counters: "ledger_dispatches" (issuer batches), "ledger_lanes" (their
+    lanes, padding included), "ledger_pad_lanes"."""
+    import threading
+
+    from .serve.batcher import PAD_CREDENTIAL
+
+    if batch < 1:
+        raise ValueError("batch must be >= 1 (got %r)" % (batch,))
+    if not issuers:
+        raise ValueError("a ledger needs at least one issuer")
+    sup = _Supervisor(
+        backend, mode, retry_policy, fallback_backend, True,
+        pipeline_depth, prefetch_depth,
+        pad_bases_to=_pad_classes(issuers) if mode == "per_credential" else None,
+    )
+    fingerprint = ledger_fingerprint(mode, issuers, params) if state_path else None
+    state = StreamState(state_path, fingerprint=fingerprint)
+    pad_tails = mode == "per_credential"
+
+    # ledger order: verdicts[i][pos] of segment i, remaining[i] records of
+    # it unsettled; made by the routing thread before any batch holding
+    # its records is launched, filled by the settling thread
+    verdicts, remaining = {}, {}
+    lock = threading.Lock()
+
+    def batches():
+        queues = {iid: [] for iid in issuers}
+        job = 0
+        for i in range(state.next_batch, n_segments):
+            records = source(i)
+            full = []
+            with otrace.span("route", segment=i, n=len(records)):
+                with lock:
+                    verdicts[i] = [None] * len(records)
+                    remaining[i] = len(records)
+                for pos, (sig, msgs, iid) in enumerate(records):
+                    try:
+                        q = queues[iid]
+                    except KeyError:
+                        raise ValueError(
+                            "segment %d record %d names issuer %r, not in "
+                            "the ledger's issuers" % (i, pos, iid)
+                        ) from None
+                    q.append((i, pos, sig, msgs))
+                    if len(q) == batch:
+                        full.append((iid, q))
+                        queues[iid] = []
+            for iid, lanes in full:
+                yield launch(job, iid, lanes)
+                job += 1
+        for iid, lanes in queues.items():
+            if lanes:
+                yield launch(job, iid, lanes)
+                job += 1
+
+    def launch(job, iid, lanes):
+        sigs = [s for _, _, s, _ in lanes]
+        msgs = [m for _, _, _, m in lanes]
+        n_pad = batch - len(lanes) if pad_tails else 0
+        if n_pad:
+            sigs += [PAD_CREDENTIAL] * n_pad
+            msgs += [list(msgs[0])] * n_pad
+        metrics.count("ledger_dispatches")
+        metrics.count("ledger_lanes", len(sigs))
+        if n_pad:
+            metrics.count("ledger_pad_lanes", n_pad)
+        finalize, attempts, bspan = sup.launch(job, sigs, msgs, issuers[iid], params)
+        return job, finalize, lanes, attempts, bspan
+
+    def settle(job, finalize, lanes, attempts, bspan):
         with otrace.use(bspan):
             try:
                 with otrace.span("device"):
@@ -759,59 +1036,34 @@ def verify_stream(
             except BaseException as e:
                 bspan.end(error=type(e).__name__)
                 raise
-            if bisector is not None and not result:
-                culprits = bisector(sigs, msgs, idx, attempts)
-                state.batches_failed += 1
-                state.failed += len(culprits)
-                state.verified += n - len(culprits)
-            else:
-                record(state, result, n)
-            # deliver results BEFORE persisting the checkpoint: a crash
-            # inside on_batch then re-runs the batch (at-least-once
-            # delivery) instead of silently dropping its verdicts
-            if on_batch is not None:
-                on_batch(idx, result)
-            state.next_batch = idx + 1
+            per_lane = isinstance(result, list)
+            with lock:
+                for lane, (i, pos, _, _) in enumerate(lanes):
+                    verdicts[i][pos] = bool(result[lane] if per_lane else result)
+                    remaining[i] -= 1
+            deliver()
+        bspan.end(ok=None if per_lane else bool(result))
+
+    def deliver():
+        """Hand on every segment, in order, whose records have all
+        settled; checkpoint after each."""
+        while state.next_batch < n_segments:
+            i = state.next_batch
+            with lock:
+                if remaining.get(i) != 0:
+                    return
+                out = verdicts.pop(i)
+                del remaining[i]
+            # deliver BEFORE persisting the checkpoint: a crash inside
+            # on_segment re-runs the segment (at-least-once)
+            if on_segment is not None:
+                on_segment(i, out)
+            ok = sum(out)
+            state.verified += ok
+            state.failed += len(out) - ok
+            state.next_batch = i + 1
             state.save()
-            bspan.event("checkpoint", next_batch=idx + 1)
-        bspan.end(
-            ok=bool(result) if not isinstance(result, list) else None
-        )
 
-    def _launched():
-        for i in range(state.next_batch, n_batches):
-            sigs, messages_list = source(i)
-            finalize, attempts, bspan = launch(i, sigs, messages_list)
-            yield (
-                i,
-                finalize,
-                len(sigs),
-                sigs,
-                messages_list,
-                attempts,
-                bspan,
-            )
-
-    launched = (
-        _prefetch_launches(_launched, prefetch_depth)
-        if pipeline and prefetch_depth > 0
-        else _launched()
-    )
-    pending = []  # [(index, finalize, batch_size, sigs, msgs, attempts)]
-    try:
-        for item in launched:
-            if not pipeline:
-                settle(*item)
-                continue
-            pending.append(item)
-            if len(pending) >= pipeline_depth:
-                settle(*pending.pop(0))
-    finally:
-        # a settle error must tear the prefetch worker down NOW, not at
-        # GC (the propagating traceback pins this frame — and with it the
-        # generator — alive), so the worker never lingers blocked on a
-        # full queue
-        launched.close()
-    for p in pending:
-        settle(*p)
+    sup.drive(batches, settle)
+    deliver()  # segments with no records left at the end
     return state

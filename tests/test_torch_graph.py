@@ -3,7 +3,9 @@
 
 On the CPU: the capture policy's decisions per shape key (eager, capture,
 replay), keys that differ by B, base count or signature assignment kept
-apart, the least recently used graph evicted at the cap, a CPU backend
+apart, the least recently used graph evicted at the cap and counted,
+eight issuers of 2-8 attributes made one key by padding the base axis
+(two in the ledger's two padding classes), a CPU backend
 that never captures, with a stub in place of the capture, the malloc
 settings a process's first capture makes, and the one-off work a capture
 is marked as: gpu/serial's clock of it, the watchdog's deadlines that it
@@ -13,7 +15,9 @@ Marked `gpu`, skipped without a card: replayed bits against the eager
 path's and the expected verdicts (G1 and G2, B = 8 and 64, forged and
 identity sigma_1 lanes), two batches enqueued back to back before either
 is read, the counts of calls 1, 2 and 3 of a key, the launches a replay
-credits, and a new shape's own graph under the cap. On a machine with a
+credits, a new shape's own graph under the cap, and a mixed ledger
+(`stream.verify_ledger`) that captures once a padded key and replays
+the rest, its verdicts those of a CPU backend and the plain reference. On a machine with a
 card: `python -m pytest tests/test_torch_graph.py -q`. Tolerance: exact.
 """
 
@@ -23,12 +27,22 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from coconut_tpu_torch import entry, metrics
+from coconut_tpu_torch import entry, metrics, stream
 from coconut_tpu_torch.gpu import backend as bk
 from coconut_tpu_torch.gpu import cuda_fp, serial
 from coconut_tpu_torch.gpu.backend import TorchBackend
 from coconut_tpu_torch.serve import CredentialService
 from coconut_tpu_torch.serve.health import Watchdog
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: the suite runs several workers on one machine,
+    and these small ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -86,6 +100,47 @@ def test_keys_part_by_batch_base_count_and_assignment():
     p3, _, vk3, sigs3, msgs3 = entry.fixture(2, msg_count=2)
     keys = [same, key(params, vk, sigs, msgs), key(p2, vk2, sigs2, msgs2), key(p3, vk3, sigs3, msgs3)]
     assert len(set(keys)) == 4
+
+
+def test_padded_issuers_share_keys_and_the_lru_counts_its_drops(monkeypatch):
+    """Eight issuers of 2, 3, 4, 5, 6, 6, 7 and 8 attributes: unpadded their
+    batches make seven shape keys, and three rounds of them through a
+    policy of four graphs make eleven evictions, each counted in
+    `evictions` and in verify_graph_evictions; padded to 9 bases they make
+    one key, in the ledger's two classes (5 and 9) two, which the policy
+    keeps without an eviction. The comb tables are stubs of the real
+    leading shape (a key reads shapes alone)."""
+    params, _, vk, sigs, msgs = entry.fixture(2, msg_count=8)
+    be = TorchBackend(device="cpu", comb_window=4)
+    monkeypatch.setattr(be, "_comb_tables", lambda is_fp2, bases: torch.zeros(be.nwin, len(bases), be.entries))
+    issuers = [
+        SimpleNamespace(X_tilde=vk.X_tilde, Y_tilde=vk.Y_tilde[first:first + k])
+        for k, first in ((2, 0), (3, 0), (4, 0), (5, 0), (6, 0), (6, 1), (7, 0), (8, 0))
+    ]
+
+    def key(v, pad):
+        tables, batch = be._verify_parts(sigs, [m[: len(v.Y_tilde)] for m in msgs], v, params, pad)
+        return bk._graph_key(None, True, bk._verify_operands(tables, batch))
+
+    classes = stream._pad_classes(dict(enumerate(issuers)))
+    assert [classes(v) for v in issuers] == [5, 5, 5, 9, 9, 9, 9, 9]
+    assert len({key(v, None) for v in issuers}) == 7
+    assert len({key(v, 9) for v in issuers}) == 1
+    assert len({key(v, classes(v)) for v in issuers}) == 2
+
+    def rounds(pad_of):
+        policy = bk._GraphPolicy(4)
+        before = metrics.get_count("verify_graph_evictions")
+        for _ in range(3):
+            for v in issuers:
+                k = key(v, pad_of(v))
+                if policy.lookup(k)[0] == "capture":
+                    policy.store(k, object())
+        return policy.evictions, metrics.get_count("verify_graph_evictions") - before
+
+    assert rounds(lambda v: None) == (11, 11)
+    assert rounds(lambda v: 9) == (0, 0)
+    assert rounds(classes) == (0, 0)
 
 
 def test_cpu_backend_never_captures(monkeypatch):
@@ -277,3 +332,45 @@ def test_each_shape_gets_its_own_graph_and_the_cap_evicts_the_oldest(cuda):
     assert be.batch_verify(sigs[:6], msgs[:6], vk, params) == expect[:6]
     assert _counts(be) == (4, 5)
     assert [g.inputs[1].shape[0] for g in be._verify_graphs.graphs._d.values()] == [4, 6]
+
+
+@pytest.mark.gpu
+def test_a_mixed_ledger_captures_once_a_key_and_replays_the_rest(cuda):
+    """A ledger of four issuers (2, 3, 5 and 8 attributes, one params) in
+    batches of 8: 48 records in four segments, 12 an issuer, so each
+    issuer dispatches a full batch and a padded tail. The ledger's two
+    padding classes (5 and 9 bases) make two keys, each run eagerly once,
+    captured once and replayed twice more; the verdicts equal a CPU
+    backend's, eager, and the plain reference's, forged lanes among them."""
+    from portbench.harness import convert
+    from portbench.harness import ledger as pools
+    from portbench.harness.traffic import forge
+    from portbench.reference import ledger as reference
+
+    plain = pools._pools(2**31 + 2117, 12, [2, 3, 5, 8])
+    issuers = plain["issuers"]
+    params = convert.params(plain)
+    verkeys = {i: convert.verkey(iss) for i, iss in enumerate(issuers)}
+    plan = [[(n % 4, (n // 4) % 12, 1 if n % 5 == 0 else None) for n in range(s * 12, s * 12 + 12)] for s in range(4)]
+
+    def source(s):
+        return [
+            (convert.signature(*issuers[i]["creds"][p][:2]), forge(issuers[i]["creds"][p][2], attr), i)
+            for i, p, attr in plan[s]
+        ]
+
+    def run(be):
+        out = []
+        stream.verify_ledger(source, 4, verkeys, params, be, batch=8, on_segment=lambda s, v: out.append(v))
+        return out
+
+    be = TorchBackend()
+    got = run(be)
+    assert _counts(be) == (2, 6)
+    assert got == run(TorchBackend(device="cpu", comb_window=4))
+    keys = {i: iss["sk"] for i, iss in enumerate(issuers)}
+    want = [
+        reference.verdicts_exp([(i, issuers[i]["logs"][p], forge(issuers[i]["creds"][p][2], a)) for i, p, a in seg], keys)
+        for seg in plan
+    ]
+    assert got == want and not all(v for seg in want for v in seg)
